@@ -1,4 +1,4 @@
-"""FLGP-TPU: a TPU-native framework for heat-kernel Gaussian processes.
+"""FLGP: a JAX framework for heat-kernel Gaussian processes on GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the FLGP
 reference package (graph-spectral heat-kernel GP regression and

@@ -1,4 +1,4 @@
-"""Typed configuration for FLGP-TPU.
+"""Typed configuration for FLGP.
 
 The reference threads a stringly-typed R list ``models = {subsample, kernel,
 gl, root}`` plus per-call scalars through every entry point and dispatches on
@@ -58,11 +58,10 @@ class NoiseModel(str, enum.Enum):
 EPS = 1e-9
 
 # Matmul precision for the numerically critical contractions (distance
-# expansion, Gram matrices, heat-kernel assembly, model solves).  TPU f32
-# matmuls otherwise run as bf16 passes on the MXU — catastrophic for the
-# |x|²−2x·u+|u|² cancellation and for spectra clustered near 1 (measured:
-# torus GPC error 0.35 vs 0.017, spiral RMSE 2.96 vs 0.51).  HIGHEST costs
-# nothing measurable at these shapes (fit wall-clock unchanged at ±1%).
+# expansion, Gram matrices, heat-kernel assembly, model solves).  On the GPU
+# HIGHEST means full FP32 (no TF32 on the tensor cores): the |x|²−2x·u+|u|²
+# cancellation and spectra clustered near 1 need the f32 mantissa.  A
+# contraction that passes no ``precision=`` runs in TF32 on an H100.
 import jax as _jax  # noqa: E402
 
 PRECISION = _jax.lax.Precision.HIGHEST
@@ -210,11 +209,9 @@ class FitConfig:
     output_cov: bool = False
     dtype: jnp.dtype = jnp.float32
     # dtype for the train/predict solve tail (Newton mode-finding, Cholesky,
-    # Woodbury, PG Gibbs).  None = same as ``dtype``.  On TPU the graph/
-    # spectral stage is robust in f32 (with PRECISION-pinned matmuls) but the
-    # solve tail is not: f32 end-to-end gives torus GPC error 0.037 vs 0.016
-    # with an f64 tail, at unchanged wall-clock (the tail matrices are m×m).
-    # Requires jax_enable_x64 when set to float64.
+    # Woodbury, PG Gibbs).  None = same as ``dtype``.  The tail matrices
+    # are m×m, so an f64 tail costs little where the graph/spectral stage
+    # stays f32.  Requires jax_enable_x64 when set to float64.
     solve_dtype: Optional[jnp.dtype] = None
 
     def __post_init__(self):

@@ -44,9 +44,8 @@ def build_spectrum(
         key, X_all, g.s, g.subsample, g.nstart, g.kmeans_iters
     )
     K = g.resolved_K()
-    # raw ELL graph, then the fused normalize+spectrum tail (Pallas one-hot
-    # kernels on TPU lowerings; exact XLA composition elsewhere — see
-    # ops.spectrum.spectrum_fused)
+    # raw ELL graph, then the normalize+spectrum tail
+    # (ops.spectrum.spectrum_fused)
     if g.kernel == KernelType.LAE:
         idx = knn(X_all, sub.centers, g.r).indices
         w = lae_weights(X_all, sub.centers, idx)

@@ -131,9 +131,7 @@ def streamed_build_spectrum(
     same anchors."""
     sub = anchors if anchors is not None else streamed_subsample(key, mat, g, chunk_rows=chunk_rows)
     Z = streamed_ell_graph(mat, sub.centers, g, chunk_rows)
-    # the fused tail keeps TPU-f32 equality with the in-memory
-    # fit.spectral.build_spectrum path (same dispatch, same kernels); the
-    # fallback branch is the bit-identical op composition
+    # the same tail as the in-memory fit.spectral.build_spectrum path
     return spectrum_fused(
         Z.values, Z.indices, g.s, g.resolved_K(), g.gl, g.root, sub.counts
     ), sub

@@ -1,15 +1,14 @@
 """ChEES-HMC: cross-chain adaptive trajectory lengths at fixed batch shape.
 
-Why this exists (round-5 headline): vmapped NUTS runs every chain of a batch
-to the slowest chain's tree depth, so its throughput COLLAPSES at wide batch
-(measured on the v5e: 79k min-ESS/s at 1024 chains vs fixed-HMC's 958k at
-16384), while fixed-trajectory HMC leaves quality on the table at narrow
-batch because nothing tunes its trajectory length.  ChEES (Hoffman, Radul &
+Why this exists: vmapped NUTS runs every chain of a batch to the slowest
+chain's tree depth, so its throughput COLLAPSES at wide batch, while
+fixed-trajectory HMC leaves quality on the table at narrow batch because
+nothing tunes its trajectory length.  ChEES (Hoffman, Radul &
 Sountsov, AISTATS 2021) closes the split: NUTS-quality *adaptive* trajectory
 lengths with a batch-uniform step count per iteration, so the whole batch
-stays one fused leapfrog program on the MXU at any chain count.
+stays one fused leapfrog program at any chain count.
 
-TPU-native formulation:
+Formulation:
 
 - ONE jittered trajectory length per iteration, shared by every chain: the
   per-iteration leapfrog count ``n_t = ceil(h_t·τ / ε)`` (h_t a base-2
@@ -126,8 +125,7 @@ def _chees_grad(st, prop, p1, accept_prob, inv_mass, h, axis_name):
     through a steep region) are excluded by zeroing their accept weight AND
     their field values: the MH accept path already rejects them, but the
     criterion reads proposals directly, and one NaN chain would otherwise
-    poison the cross-chain means and pin τ at NaN for the rest of warmup
-    (observed on the v5e before this guard)."""
+    poison the cross-chain means and pin τ at NaN for the rest of warmup."""
     dtype = st.x.dtype
     finite = jnp.logical_and(
         jnp.all(jnp.isfinite(prop.x), axis=1), jnp.all(jnp.isfinite(p1), axis=1)

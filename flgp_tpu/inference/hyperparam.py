@@ -230,16 +230,15 @@ def mult_t_posterior(
     """Joint SMC posterior over per-class log t for one-vs-rest multiclass.
 
     aug_y: (m, J) one-hot labels (fit.multiclass.one_hot_labels output).  The
-    J binary marginals batch under one vmap per particle — the TPU replaces
-    the reference's serial per-class COBYLA loop
+    J binary marginals batch under one vmap per particle — replacing the
+    reference's serial per-class COBYLA loop
     (src/MultiClassification.cpp:40-50) with a fully batched posterior.
 
     ``stages_per_dispatch``: when set, the tempering ladder runs through
     :func:`run_smc_chunked` — ≤ that many stages per device dispatch with the
-    tiny SMC state carried across dispatches (bit-identical result).  This is
-    how the VALIDATED 64-particle/5-mutation budget runs on an executor with
-    a per-dispatch watchdog; the function is then no longer jittable as a
-    whole (it owns a host loop).
+    tiny SMC state carried across dispatches (bit-identical result), which
+    bounds the wall of each dispatch; the function is then no longer
+    jittable as a whole (it owns a host loop).
     """
     m, J = aug_y.shape
     dtype = eigenpair.vectors.dtype
@@ -261,7 +260,7 @@ def mult_t_posterior(
 
         # lax.map (not vmap) over classes: the SMC evaluates this under a
         # vmap over all particles, so a vmapped class axis multiplies peak
-        # memory by J (measured: HBM blowups at m=500, J=10, 64 particles
+        # memory by J (device-memory blowups at m=500, J=10, 64 particles
         # with the dense marginal).  Classes run sequentially; particles
         # stay batched.
         return jnp.sum(jax.lax.map(one, (ts, aug_y.T)))

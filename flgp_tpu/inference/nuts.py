@@ -392,14 +392,11 @@ def run_nuts_fixed_chunked(
 ) -> NutsRun:
     """Steady-state NUTS split into dispatches of BOUNDED worst-case wall.
 
-    Why (root-caused on the v5e, round 5): a wide-batch NUTS program whose
-    chains run deep trees in lockstep can exceed the remote executor's
-    single-dispatch watchdog — measured: C=16384 chains × 256 draws with
-    adapted (step, mass) on a heavy-tailed posterior was killed at ~61 s
-    with "TPU worker process crashed or restarted", taking the backend down
-    (the round-4 bench crash).  Memory is NOT the resource (2.8 GB at that
-    shape) and a shallow-tree program of identical shape runs in <2 s — the
-    budget that matters is SEQUENTIAL leapfrog steps × per-step wall.
+    A wide-batch NUTS program whose chains run deep trees in lockstep can
+    run for a long, hard-to-predict time in one dispatch: the budget that
+    matters is SEQUENTIAL leapfrog steps × per-step wall, not memory.  This
+    driver bounds the wall of each dispatch, so a caller gets control back
+    at a known cadence (progress, checkpoints, time limits).
 
     This driver (a) times a short calibration dispatch and converts its
     measured per-draw lockstep step count into seconds-per-sequential-step,

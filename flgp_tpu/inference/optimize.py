@@ -3,7 +3,7 @@
 The reference drives NLopt from C++ — derivative-free COBYLA for the 1-D GPC
 diffusion time (src/train.cpp:38-71) and gradient-based MMA with hand-derived
 gradients for GPR (t, noise) (src/train.cpp:557-671).  Sequential host-side
-optimizers serialize TPU work, so instead:
+optimizers serialize device work, so instead:
 
 - 1-D objectives: a log-spaced grid evaluated in one vmap (perfectly parallel
   on device) followed by golden-section refinement of the bracketing cell.
@@ -94,7 +94,7 @@ def minimize_1d_log(
 
     us, fs, i, n_exp = jax.lax.while_loop(exp_cond, exp_body, (us, fs, i, jnp.int32(0)))
     if coarse_fn is not None:
-        # belt-and-braces (ADVICE r4): a surrogate misranking of ≥2 coarse
+        # belt-and-braces: a surrogate misranking of ≥2 coarse
         # cells is unrecoverable once the refinement bracket clips to the
         # wrong neighborhood — re-evaluate the EXACT objective on the top-3
         # surrogate cells (3 extra evals, one vmap) and bracket the winner
@@ -227,8 +227,8 @@ def minimize_t_noise(
     better = res.obj < vals[i]
     t_out = jnp.where(better, t, flatT[i])
     n_out = jnp.where(better, noise, flatN[i])
-    # the convergence-status gradient must describe the RETURNED point
-    # (ADVICE r4): when the coarse-grid point wins, Adam's grad_norm is a
+    # the convergence-status gradient must describe the RETURNED point:
+    # when the coarse-grid point wins, Adam's grad_norm is a
     # different iterate's — recompute at (t_out, n_out) in log-coords
     x_out = jnp.stack(
         [

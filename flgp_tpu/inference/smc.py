@@ -13,10 +13,10 @@ Two drivers over ONE stage body:
   ``lax.while_loop`` (one dispatch; right when the per-stage work is small).
 - :func:`run_smc_chunked` — the same ladder split into host-side dispatches
   of ≤ ``stages_per_dispatch`` stages each.  The SMC state is a tiny pytree,
-  so checkpointing it across dispatches is free — this is how petaFLOP-scale
-  ladders (e.g. the multiclass Laplace-marginal target at its validated
-  64-particle/5-mutation budget) run under a remote-executor watchdog that a
-  single monolithic dispatch would trip.  Both drivers apply the identical
+  so checkpointing it across dispatches is free — this bounds the wall of
+  each dispatch for long ladders (e.g. the multiclass Laplace-marginal
+  target at its validated 64-particle/5-mutation budget).  Both drivers
+  apply the identical
   stage body in the identical order, so their results agree bit-for-bit.
 """
 

@@ -1,8 +1,8 @@
 """Whitened low-rank latent parameterization of heat-kernel GPs.
 
 The reference's inference works in the m-dimensional latent f with dense
-(m, m) covariance solves per step (src/PGLogitModel.cpp:25-39).  The
-TPU-native formulation exploits the spectral structure directly:
+(m, m) covariance solves per step (src/PGLogitModel.cpp:25-39).  This
+formulation exploits the spectral structure directly:
 
     f = V_idx · diag(exp(−t·(1−λ)/2)) · u,   u ~ N(0, I_K)
 
@@ -77,16 +77,10 @@ def latent_f(gp: WhitenedGP, u: jnp.ndarray, t: jnp.ndarray, precision=None) -> 
 
 def logpost_with_precision(base, precision):
     """Same posterior as ``base`` (GpcLogPost/GprLogPost) with the latent
-    matmul at ``precision`` — e.g. ``jax.lax.Precision.DEFAULT`` for
-    single-pass-bf16 multiplies with f32 accumulation.
-
-    Measured on the v5e torus GPC posterior at 16,384 chains (round 5):
-    1.21× end-to-end sampler speedup (10.0M vs 8.2M min-ESS/s), worst
-    per-coordinate sd ratio 1.004, mean shift ≲0.04 posterior sd — bf16
-    multiplies are statistically indistinguishable for posterior sampling.
-    The reason the speedup is not larger: the batched gradient is only
-    ~1.4× faster at bf16x1 vs f32x6 (the (C, dim)-state elementwise ops
-    and RNG, not the MXU matmuls, bound this program size).
+    matmul at ``precision`` — e.g. ``jax.lax.Precision.DEFAULT``, which
+    on the GPU runs an f32 matmul on the tensor cores in TF32.  Whether
+    that is statistically indistinguishable and faster for sampling is
+    what bench.py's ChEES stage gates and times.
 
     Returned as a closure (not a NamedTuple field) so Precision never
     becomes a pytree leaf."""

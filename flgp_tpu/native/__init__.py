@@ -1,10 +1,10 @@
-"""Native (C++) host runtime for FLGP-TPU.
+"""Native (C++) host runtime for FLGP.
 
 The reference's graph-builder hot loops live in C++ under RcppParallel/TBB
 (/root/reference/src/Utils.cpp:72-192, /root/reference/src/lae.cpp:15-153);
 its Pólya-Gamma draws round-trip to a host package
-(/root/reference/src/PGLogitModel.h:20-21).  In FLGP-TPU the *compute path*
-is JAX/XLA on the TPU; this module is the native runtime around it:
+(reference src/PGLogitModel.h:20-21).  Here the *compute path* is
+JAX/XLA on the accelerator; this module is the native runtime around it:
 
 * ``MatrixFile`` / ``write_matrix`` — memory-mapped binary matrices with a
   32-byte header, the on-disk format for datasets larger than host RAM.

@@ -1,11 +1,11 @@
-// FLGP-TPU native host runtime.
+// FLGP native host runtime.
 //
 // The reference implements its graph-builder hot loops as C++ under
 // RcppParallel/TBB (kNN: /root/reference/src/Utils.cpp:72-192, LAE:
 // /root/reference/src/lae.cpp:15-153) and draws Polya-Gamma variates through
-// a host callback (/root/reference/src/PGLogitModel.cpp:42-45).  FLGP-TPU's
-// *compute path* is JAX/XLA on the TPU; this library is the native runtime
-// AROUND it:
+// a host callback (reference src/PGLogitModel.cpp:42-45).  FLGP's
+// *compute path* is JAX/XLA on the accelerator; this library is the native
+// runtime AROUND it:
 //
 //   * a chunked, memory-mapped binary matrix loader that streams row shards
 //     of datasets too large for host RAM into the sharded spectral pipeline,

@@ -1,34 +1,25 @@
 """Chunked feature-major spectral stage for huge point clouds (n ≳ 1e6).
 
-TPU arrays tile the last two axes as (sublane, lane) = (8, 128); any
-point-major array with a tiny minor dim pads its lanes to 128, so at n=1e7
-the (n, 3) point cloud costs 5.1 GB, the (n, r) kNN indices another 5.1 GB,
-and the (n, r, d) LAE anchor gather 20.5 GB — the round-2 bench OOM on a
-16 GB chip.  Equally fatal (measured, round 3): *transposing* to a flat
-feature-major (r, n) array — XLA materializes the transpose through a
-lane-minor intermediate (r on the 128-lane axis, 42.7× padding → 3×4.78 GB
-temps) — and 2-D gathers ``scale[idx_t]`` with an (r, n) index array, which
-force the same transposed copies.
+Input arrives as a (d, n) cloud and the graph is built chunk by chunk under
+``lax.map``, so the per-chunk intermediates (the (c, s) distance tile, the
+(c, r, d) anchor gather, the FISTA state) stay O(chunk) whatever n is.  The
+graph itself is kept in a CHUNKED 3-D layout with the point axis minor:
 
-So the internal layout here is CHUNKED 3-D and never transposed:
-
-    idx, w : (nch, r, c)   — point axis minor (c on lanes), r on sublanes,
-                             chunks stacked on a leading axis by lax.map
+    idx, w : (nch, r, c)   — chunks stacked on a leading axis by lax.map
     grams  : (nch, r², c)
 
-exactly the order the one-pass builder emits.  Rules that keep the memory
-honest (oracle-tested equal to ops.spectrum/ops.laplacian,
-src/Spectrum.cpp:101-161 semantics, in tests/test_colmajor.py):
+exactly the order the one-pass builder emits.  Rules the module keeps
+(oracle-tested equal to ops.spectrum/ops.laplacian, src/Spectrum.cpp:101-161
+semantics, in tests/test_colmajor.py):
 
-- every gather/scatter runs on flat 1-D views (1-D arrays have no lane
-  padding and pairing is preserved by reshape);
+- every gather/scatter runs on flat 1-D views, so pairing is preserved by
+  reshape and no (r, n) index array is ever transposed;
 - reductions over r use axis=-2 — no reshapes that move the point axis;
-- the LAE FISTA loop runs in the fused Pallas kernel per chunk inside the
-  map (``fused_lae_tiles``; XLA scan fallback off-TPU) — its operand layout
-  constraint anchors the chunk buffers at row-major;
+- the LAE FISTA loop runs per chunk inside the map (``ops.lae.lae_weights_t``:
+  the Pallas-Triton kernel on CUDA lowerings, the XLA scan elsewhere);
 - Gram AᵀA and the eigenvector extension scatter each chunk into a dense
-  (c, s) block and ride the MXU; the only O(n·K) arrays are the extension
-  output and its tail-trim slice (K ≥ 128 ⇒ no lane padding).
+  (c, s) block and use matmuls; the only O(n·K) arrays are the extension
+  output and its tail-trim slice.
 """
 
 from __future__ import annotations
@@ -38,64 +29,7 @@ import jax.numpy as jnp
 
 from ..config import EPS, PRECISION, KernelType, LaplacianType
 from ..types import EigenPair
-
-
-def _fista_t_xla(Gt: jnp.ndarray, bt: jnp.ndarray, iters: int) -> jnp.ndarray:
-    """Portable FISTA on feature-major inputs: Gt (r², n), bt (r, n) →
-    simplex weights (r, n).  Same math as ops.lae.lae_weights_xla
-    (src/lae.cpp:97-130 semantics), transposed."""
-    r, n = bt.shape
-    G = Gt.reshape(r, r, n)
-
-    L = jnp.max(jnp.sum(jnp.abs(G), axis=1), axis=0) + 1e-12   # Gershgorin, (n,)
-    inv_L = (1.0 / L)[None, :]
-
-    def project_simplex_t(v):
-        # Euclidean simplex projection along axis 0 (src/lae.cpp:137-153)
-        u = jnp.sort(v, axis=0)[::-1]
-        cssv = jnp.cumsum(u, axis=0)
-        k = jnp.arange(1, r + 1, dtype=v.dtype)[:, None]
-        cond = u - (cssv - 1.0) / k > 0
-        rho = jnp.maximum(jnp.sum(cond, axis=0), 1)
-        theta = (
-            jnp.take_along_axis(cssv, (rho - 1)[None, :], axis=0)[0] - 1.0
-        ) / rho.astype(v.dtype)
-        return jnp.maximum(v - theta[None, :], 0.0)
-
-    z0 = jnp.full_like(bt, 1.0 / r)
-
-    def body(carry, _):
-        z_prev, z_curr, d_prev, d_curr = carry
-        alpha = (d_prev - 1.0) / d_curr
-        v = z_curr + alpha * (z_curr - z_prev)
-        grad = jnp.einsum("rn,rsn->sn", v, G, precision=PRECISION) - bt
-        z_next = project_simplex_t(v - inv_L * grad)
-        d_next = (1.0 + jnp.sqrt(1.0 + 4.0 * d_curr * d_curr)) / 2.0
-        return (z_curr, z_next, d_curr, d_next), None
-
-    (_, z, _, _), _ = jax.lax.scan(
-        body, (z0, z0, jnp.asarray(0.0, bt.dtype), jnp.asarray(1.0, bt.dtype)),
-        None, length=iters,
-    )
-    return z
-
-
-def _lae_weights_t(Gt: jnp.ndarray, bt: jnp.ndarray, iters: int) -> jnp.ndarray:
-    """FISTA on ONE chunk's feature-major inputs (r², c)/(r, c) → (r, c):
-    Pallas on TPU lowerings, the XLA scan elsewhere.  Called inside the
-    chunk map, so the Pallas operand layout constraint anchors the chunk
-    buffers at row-major — no full-n G/b ever stacks up."""
-    import functools as _ft
-
-    from .pallas_kernels import _HAVE_PALLAS, fused_lae_tiles
-
-    if not _HAVE_PALLAS or bt.dtype != jnp.float32 or bt.shape[-1] % 128:
-        return _fista_t_xla(Gt, bt, iters)
-    return jax.lax.platform_dependent(
-        Gt, bt,
-        tpu=_ft.partial(fused_lae_tiles, out_dtype=bt.dtype, iters=iters),
-        default=_ft.partial(_fista_t_xla, iters=iters),
-    )
+from .lae import lae_weights_t
 
 
 def kmeans_anchors_colmajor(
@@ -110,12 +44,11 @@ def kmeans_anchors_colmajor(
     Lloyd on a uniform column sample of ``n_sample`` points (with
     replacement — immaterial at n ≫ n_sample).  This restores the
     reference's anchor semantics (src/Utils.cpp:37-56: k-means everywhere)
-    on the huge-n path, where round-4's random-row anchors swung the n=1e7
-    GPC error 2.8× across draws (VERDICT r4 §missing-2).
+    on the huge-n path, where random-row anchors let the GPC error swing
+    with the draw.
 
-    The gather uses a 1-D column-index array (output (d, n_sample) stays
-    lane-friendly); the (n_sample, d) transpose is a ~1.5 MB copy, nothing
-    like the full-n transposes the module docstring forbids.  Jittable;
+    The gather uses a 1-D column-index array; the (n_sample, d) transpose is
+    a ~1.5 MB copy, nothing like a full-n transpose.  Jittable;
     returns (s, d) centers — full-n cluster sizes, when the
     CLUSTER_NORMALIZED Laplacian needs them, come from
     :func:`cluster_sizes_colmajor`."""
@@ -181,19 +114,14 @@ def build_graph_colmajor(
 
     # Chunks are dynamic-sliced from the (d, npad) array inside the map, and
     # every per-chunk array is CONSTRUCTED feature-major — no `.T` anywhere
-    # after the kNN: XLA's layout assignment propagates an in-chunk transpose
-    # outward onto the stacked (nch, ·, c) scan buffers as an r-minor layout
-    # (r on the 128-lane axis, 42.7× padding → 2×4.78 GB at n=1e7, measured).
-    # Gathers are safe anchors: a gather's output shape IS its index shape.
+    # after the kNN, so layout assignment has no transpose to propagate onto
+    # the stacked (nch, ·, c) map outputs.  Gathers are safe anchors: a
+    # gather's output shape IS its index shape.
     from .knn import knn
 
     def one(i):
         Xc = jax.lax.dynamic_slice(Xp, (0, i * chunk), (d, chunk))
         xc = Xc.T                                        # (c, d) — chunk-local
-        # production kNN — the fused Pallas kernel on TPU lowerings.  An
-        # inline matmul + lax.top_k here costs 360 s at n=1e6 (measured:
-        # XLA's top_k lowering inside the chunk map serializes); the fused
-        # kernel's iterative min-extraction does the same work in 0.11 s.
         res = knn(xc, U, r)
         idx = res.indices                                # (c, r)
         # feature-major arrays via r column-slices stacked on a NEW leading
@@ -212,7 +140,7 @@ def build_graph_colmajor(
                 wt = wt * vc[None, :].astype(dtype)
             return idx_t, wt
         # LAE terms from the gathered anchor rows — the small (s, d) table
-        # gather fuses with the einsums; nothing (c, s)-sized touches HBM
+        # gather fuses with the einsums; nothing (c, s)-sized is stored
         Ui = U[idx]                                      # (c, r, d)
         b_t = jnp.stack(
             [jnp.einsum("cd,cd->c", xc, Ui[:, k], precision=PRECISION) for k in range(r)]
@@ -221,7 +149,7 @@ def build_graph_colmajor(
         G_t = jnp.stack(
             [G[:, a, b] for a in range(r) for b in range(r)]
         ).astype(dtype)
-        w_t = _lae_weights_t(G_t, b_t, lae_iters).astype(dtype)
+        w_t = lae_weights_t(G_t, b_t, lae_iters).astype(dtype)
         if vc is not None:
             w_t = w_t * vc[None, :].astype(dtype)
         return idx_t, w_t
@@ -241,8 +169,7 @@ def normalize_colmajor(
 
     Accepts any layout with r on axis −2 and points on axis −1: the chunked
     (nch, r, c) form or a flat (r, n).  All gathers/scatters run on flat
-    1-D views (2-D gathers with an (r, ·) index array make XLA materialize
-    lane-transposed copies — 42.7× padding at n=1e7)."""
+    1-D views, so no (r, ·) index array is ever transposed."""
     gl = LaplacianType(gl)
     shape = w.shape
     if gl != LaplacianType.RW:
@@ -273,7 +200,7 @@ def spectrum_colmajor(
 
     ``idx``/``w`` are (nch, r, c) (a flat (r, n) is accepted as one chunk);
     ``n`` is the REAL point count (pad points must carry zero weights).
-    Each chunk scatters into dense (≤gram_block, s) blocks for the MXU
+    Each chunk scatters into dense (≤gram_block, s) blocks for the matmul
     Gram accumulation and eigenvector extension."""
     if idx.ndim == 2:
         idx, w = idx[None], w[None]
@@ -316,7 +243,7 @@ def spectrum_colmajor(
 
     # Eigenvector extension — vectors = A·(V·σ⁻¹·√n); the σ⁻¹/√n rescale is
     # folded into V so the only O(n·K) arrays are the map output and its
-    # tail-trim slice.  Same dense-scatter MXU pattern as the Gram.
+    # tail-trim slice.  Same dense-scatter matmul pattern as the Gram.
     V_ext = V * (jnp.sqrt(jnp.asarray(n, dtype)) / (sigma + EPS))[None, :]
 
     def ext_body(blk):
@@ -347,69 +274,16 @@ def heat_kernel_spectrum_colmajor(
 ) -> EigenPair:
     """Full graph → normalize → spectrum pipeline on (d, n) input: the
     huge-n equivalent of ops.spectrum.cross_similarity_* + spectrum_from_Z
-    with peak HBM O(n·r) + the (n, K) output instead of O(n·128-padded
-    lanes)."""
+    with peak device memory O(n·r) + the (n, K) output plus O(chunk)
+    intermediates."""
     n = Xt.shape[1]
     s = U.shape[0]
     gl = LaplacianType(gl)
     idx_c, w_c = build_graph_colmajor(Xt, U, r, kernel, epsilon_sq4, lae_iters, chunk)
     # stage barriers: without them XLA rematerializes the expensive build
     # (kNN + 150-iteration FISTA) inside the downstream Gram/extension scans
-    # — measured 461 s fused vs 24 s staged for the identical n=1e7 program
     idx_c, w_c = jax.lax.optimization_barrier((idx_c, w_c))
-
-    def _fallback(idx_c, w_c, csz):
-        sizes = csz if gl == LaplacianType.CLUSTER_NORMALIZED else None
-        wn = normalize_colmajor(idx_c, w_c, s, gl, sizes)
-        idx2, wn = jax.lax.optimization_barrier((idx_c, wn))
-        return spectrum_colmajor(idx2, wn, s, K, root, n)
-
-    from .pallas_kernels import (
-        _HAVE_PALLAS,
-        ell_colsum_t,
-        ell_norm_gram_t,
-        ell_norm_matmat_t,
-    )
-
-    # Fused one-hot tail on TPU lowerings (round 5): the scatter-based
-    # normalize + colsum + dense-scatter Gram measured 2.1 s of the 3.7 s
-    # n=1e7 stage — the feature-major kernel variants stream the chunked
-    # (nch, r, c) arrays once per pass with VMEM accumulators, identical
-    # reassociated math to the composition (see ops.spectrum.spectrum_fused).
-    if (
-        not _HAVE_PALLAS
-        or w_c.dtype != jnp.float32
-        or jax.config.jax_enable_x64
-        or w_c.shape[2] % 1024  # kernel block must divide the chunk columns
-    ):
-        return _fallback(idx_c, w_c, cluster_sizes)
-
-    def _fused(idx_c, w_c, csz):
-        if gl == LaplacianType.RW:
-            cscale = jnp.ones((s,), w_c.dtype)
-        else:
-            C = ell_colsum_t(w_c, idx_c, s)
-            cscale = 1.0 / (C + EPS)
-            if gl == LaplacianType.CLUSTER_NORMALIZED:
-                cscale = cscale * csz.astype(w_c.dtype)
-        Ghat, D = ell_norm_gram_t(w_c, idx_c, cscale, eps=EPS)
-        dinv = 1.0 / jnp.sqrt(jnp.abs(D) + EPS)
-        G = Ghat * dinv[:, None] * dinv[None, :]
-        wv, V = jnp.linalg.eigh(G)
-        wv = wv[::-1][:K]
-        V = V[:, ::-1][:, :K]
-        sigma2 = jnp.maximum(wv, 0.0)
-        sigma = jnp.sqrt(sigma2)
-        W_eff = dinv[:, None] * V * (
-            jnp.sqrt(jnp.asarray(n, w_c.dtype)) / (sigma + EPS)
-        )[None, :]
-        vectors = ell_norm_matmat_t(w_c, idx_c, cscale, W_eff, eps=EPS)[:n]
-        return EigenPair(sigma if root else sigma2, vectors)
-
-    csz = (
-        jnp.ones((s,), w_c.dtype) if cluster_sizes is None
-        else cluster_sizes.astype(w_c.dtype)
-    )
-    return jax.lax.platform_dependent(
-        idx_c, w_c, csz, tpu=_fused, default=_fallback
-    )
+    sizes = cluster_sizes if gl == LaplacianType.CLUSTER_NORMALIZED else None
+    wn = normalize_colmajor(idx_c, w_c, s, gl, sizes)
+    idx_c, wn = jax.lax.optimization_barrier((idx_c, wn))
+    return spectrum_colmajor(idx_c, wn, s, K, root, n)

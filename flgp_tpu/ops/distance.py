@@ -1,9 +1,9 @@
 """Pairwise squared-Euclidean distances.
 
 The reference expands ‖x‖² − 2x·u + ‖u‖² in row batches of 100 with TBB
-threads (src/Utils.cpp:102-192).  On TPU the −2XUᵀ term is a single MXU
-matmul; we only chunk rows (via lax.map) when the (n, s) product would not
-fit in HBM.
+threads (src/Utils.cpp:102-192).  Here the −2XUᵀ term is a single matmul;
+callers chunk rows (via lax.map) when the (n, s) product would not fit in
+device memory.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ def sqdist(X: jnp.ndarray, U: jnp.ndarray) -> jnp.ndarray:
     Matches the reference's expansion exactly (src/Utils.cpp:121), including
     its potential small negative values from cancellation — callers that need
     nonnegativity clamp explicitly.  The cross term runs at HIGHEST precision:
-    the cancellation amplifies bf16-pass error into wrong kNN graphs.
+    the cancellation amplifies reduced-precision error into wrong kNN
+    graphs.
     """
     x2 = jnp.sum(X * X, axis=1, keepdims=True)
     u2 = jnp.sum(U * U, axis=1, keepdims=True)

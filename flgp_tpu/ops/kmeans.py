@@ -2,7 +2,7 @@
 
 The reference calls back into R for this (stats::kmeans with iter.max=100 and
 ClusterR::MiniBatchKmeans; src/Utils.cpp:32-68).  Here each variant is a
-jit-compiled JAX routine: distance matmuls on the MXU, centroid updates via
+jit-compiled JAX routine: distance matmuls, centroid updates via
 segment-sums, restarts batched with vmap.
 
 Returned clusters double as the "cluster sizes" column the cluster-normalized
@@ -121,7 +121,7 @@ def _kmeanspar_rows(
 
     Sequential depth: rounds + s tiny candidate-set steps, vs k-means++'s
     s − 1 full-data steps.  Replaces the quality role of R's Hartigan–Wong
-    (src/Utils.cpp:37-42) at TPU-native speed.
+    (src/Utils.cpp:37-42) without its sequential passes.
     """
     n, d = X.shape
     B = max(-(-int(oversample * s) // rounds), 1)

@@ -1,8 +1,8 @@
 """Brute-force batched k-nearest-neighbors against the anchor set.
 
 The reference does per-row std::partial_sort over an (n, s) distance matrix
-under TBB (src/Utils.cpp:72-192).  The TPU-native form is one MXU matmul for
-the distances plus ``lax.top_k`` on the negated distances — fixed shapes, no
+under TBB (src/Utils.cpp:72-192).  Here it is one matmul for the distances
+plus ``lax.top_k`` on the negated distances — fixed shapes, no
 data-dependent control flow.
 """
 
@@ -22,42 +22,14 @@ class KnnResult(NamedTuple):
 
 
 def knn(X: jnp.ndarray, U: jnp.ndarray, r: int, block: int = 8192) -> KnnResult:
-    """r nearest anchors (by squared Euclidean distance) for each row of X.
+    """r nearest anchors (by squared Euclidean distance) for each row of X:
+    a blocked (n, s) distance matmul plus ``lax.top_k`` on the negated
+    distances.
 
-    On TPU lowerings with an anchor set that fits VMEM, dispatches to the
-    fused Pallas kernel (distances + top-r extraction never round-trip the
-    (block, s) tile to HBM); the XLA matmul+top_k path everywhere else.
-    Decided per-lowering via ``lax.platform_dependent``.
-
-    Ties are broken by anchor index (top_k is stable, and the fused kernel
-    extracts the first column achieving each minimum), matching
+    Ties are broken by anchor index (top_k is stable), matching
     partial_sort's behavior on strict-weak ordering closely enough for
     downstream use.
     """
-    import functools as _ft
-
-    from .pallas_kernels import _HAVE_PALLAS, fused_knn
-
-    s, d = U.shape
-    if (
-        _HAVE_PALLAS
-        and X.dtype == jnp.float32
-        and not jax.config.jax_enable_x64  # Mosaic rejects the i64 index
-                                           # maps/counters x64 mode produces
-        and s <= 4096              # (512, s) distance tile + (s, d) anchors in VMEM
-        and d <= 256
-        and r <= 16
-    ):
-        return jax.lax.platform_dependent(
-            X, U,
-            tpu=_ft.partial(fused_knn, r=r, force=True),
-            default=_ft.partial(knn_xla, r=r, block=block),
-        )
-    return knn_xla(X, U, r, block)
-
-
-def knn_xla(X: jnp.ndarray, U: jnp.ndarray, r: int, block: int = 8192) -> KnnResult:
-    """Portable XLA kNN: blocked (n, s) distance matmul + ``lax.top_k``."""
     n = X.shape[0]
 
     def one_block(xb: jnp.ndarray) -> KnnResult:

@@ -4,7 +4,7 @@ Per data point the reference solves  min_z ‖x − zᵀU_i‖²  s.t. z ∈ Δ^
 over its r nearest anchors with Nesterov-accelerated projected gradient and
 backtracking line search, one TBB task per point (src/lae.cpp:15-153).
 
-TPU-native form: the objective is quadratic, so the backtracking condition
+Batched form: the objective is quadratic, so the backtracking condition
 g(z) ≤ g̃(z) holds for any step 1/β with β ≥ λmax(U_iU_iᵀ).  We therefore run
 fixed-iteration FISTA with a per-point Gershgorin bound on λmax — identical
 unique minimizer, no data-dependent control flow, everything batched over all
@@ -13,10 +13,13 @@ n points at once (no vmap-of-scalar-loops; pure (n, r)-shaped tensor ops).
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
 from ..config import PRECISION
+from .pallas_kernels import lae_fista_t
 
 
 def project_simplex(v: jnp.ndarray) -> jnp.ndarray:
@@ -43,31 +46,64 @@ def lae_weights(
     iters: int = 150,
 ) -> jnp.ndarray:
     """Anchor-embedding weights, shape (n, r): row i solves the simplex LSQ
-    over anchors[knn_idx[i]].
+    over anchors[knn_idx[i]].  Runs :func:`lae_weights_t` on the
+    feature-major inputs of :func:`assemble_lae_gram_t`."""
+    return lae_weights_t(*assemble_lae_gram_t(X, anchors, knn_idx), iters).T
 
-    On TPU lowerings this dispatches to the fused Pallas FISTA kernel
-    (ops.pallas_kernels.fused_lae): the iteration loop is the dominant cost
-    of the whole spectral stage under XLA (150 sequential HBM passes;
-    measured 1.73 s of 2.19 s at n=1e6 on v5e), and the fused kernel runs it
-    in VMEM in a single pass.  Everywhere else: the XLA scan below.
 
-    The choice is made per-lowering with ``lax.platform_dependent`` (not by
-    inspecting the process-default device at trace time), so a CPU mesh in a
-    TPU-default process — or a jit backend override — gets the right branch."""
-    import functools as _ft
+def assemble_lae_gram_t(X: jnp.ndarray, anchors: jnp.ndarray, knn_idx: jnp.ndarray):
+    """Feature-major FISTA inputs for every point: Gt (r², n) with row
+    i·r + j holding U_i·U_j, and bt (r, n) with row k holding U_k·x, where
+    U_k = anchors[knn_idx[:, k]].  The point axis is minor, so the Triton
+    kernel's loads are coalesced."""
+    n, r = knn_idx.shape
+    Ui = anchors[knn_idx]                                      # (n, r, d)
+    Gt = jnp.einsum("nrd,nsd->rsn", Ui, Ui, precision=PRECISION).reshape(r * r, n)
+    bt = jnp.einsum("nd,nrd->rn", X, Ui, precision=PRECISION)
+    return Gt, bt
 
-    from .pallas_kernels import _HAVE_PALLAS, fused_lae
 
-    # x64 mode breaks Mosaic lowering (index maps and loop counters become
-    # i64, which the TPU compiler rejects) — the f64 parity path takes the
-    # XLA branch, where the fused kernel's speed is irrelevant anyway
-    if not _HAVE_PALLAS or X.dtype != jnp.float32 or jax.config.jax_enable_x64:
-        return lae_weights_xla(X, anchors, knn_idx, iters)
+def lae_weights_t(Gt: jnp.ndarray, bt: jnp.ndarray, iters: int = 150) -> jnp.ndarray:
+    """FISTA simplex weights (r, n) from feature-major Gt (r², n), bt (r, n)
+    — the one place the kernel is chosen, per lowering with
+    ``lax.platform_dependent``: a CUDA lowering runs the Pallas-Triton
+    kernel (``ops.pallas_kernels.lae_fista_t``), every other lowering the
+    XLA scan :func:`_fista_t_xla`.  Both take f32 and f64 inputs.  The
+    kernel has no gradient rule; no caller differentiates through the
+    weights.  Safe inside ``shard_map`` and ``lax.map``; not inside
+    ``vmap`` on the GPU (see ``ops.pallas_kernels``)."""
     return jax.lax.platform_dependent(
-        X, anchors, knn_idx,
-        tpu=_ft.partial(fused_lae, iters=iters, force=True),
-        default=_ft.partial(lae_weights_xla, iters=iters),
+        Gt, bt,
+        cuda=functools.partial(lae_fista_t, iters=iters),
+        default=functools.partial(_fista_t_xla, iters=iters),
     )
+
+
+def _fista_t_xla(Gt: jnp.ndarray, bt: jnp.ndarray, iters: int) -> jnp.ndarray:
+    """Portable FISTA on feature-major inputs: Gt (r², n), bt (r, n) →
+    simplex weights (r, n).  Same math as :func:`lae_weights_xla`
+    (src/lae.cpp:97-130 semantics), transposed."""
+    r, n = bt.shape
+    G = Gt.reshape(r, r, n)
+
+    L = jnp.max(jnp.sum(jnp.abs(G), axis=1), axis=0) + 1e-12   # Gershgorin, (n,)
+    inv_L = (1.0 / L)[None, :]
+    z0 = jnp.full_like(bt, 1.0 / r)
+
+    def body(carry, _):
+        z_prev, z_curr, d_prev, d_curr = carry
+        alpha = (d_prev - 1.0) / d_curr
+        v = z_curr + alpha * (z_curr - z_prev)
+        grad = jnp.einsum("rn,rsn->sn", v, G, precision=PRECISION) - bt
+        z_next = project_simplex((v - inv_L * grad).T).T
+        d_next = (1.0 + jnp.sqrt(1.0 + 4.0 * d_curr * d_curr)) / 2.0
+        return (z_curr, z_next, d_curr, d_next), None
+
+    (_, z, _, _), _ = jax.lax.scan(
+        body, (z0, z0, jnp.asarray(0.0, bt.dtype), jnp.asarray(1.0, bt.dtype)),
+        None, length=iters,
+    )
+    return z
 
 
 def lae_weights_xla(
@@ -76,7 +112,8 @@ def lae_weights_xla(
     knn_idx: jnp.ndarray,
     iters: int = 150,
 ) -> jnp.ndarray:
-    """Portable XLA implementation: FISTA with momentum schedule matching the
+    """The plain point-major reference the kernel and the feature-major scan
+    are tested against: FISTA with momentum schedule matching the
     reference's delta recursion (src/lae.cpp:97-130); step size 1/L with L a
     Gershgorin upper bound on λmax(U_iU_iᵀ).
     """

@@ -19,7 +19,7 @@ from ..config import EPS, PRECISION
 
 def pdot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """matmul at HIGHEST precision — the model layer's default contraction
-    (TPU f32 matmuls otherwise run as bf16 passes; see config.PRECISION)."""
+    (an f32 matmul otherwise runs in TF32 on the GPU; see config.PRECISION)."""
     return jnp.matmul(a, b, precision=PRECISION)
 
 

@@ -2,8 +2,8 @@
 
 Replaces the host round-trip into RSpectra::eigs_sym that the reference's
 Nyström/GLGP paths make (src/Fit.cpp:262-263, 410-411).  Sequential Lanczos
-is latency-bound and hostile to the TPU; LOBPCG does one operator application
-per iteration on a whole (n, K) block — matvecs become matmuls on the MXU —
+is latency-bound on an accelerator; LOBPCG does one operator application
+per iteration on a whole (n, K) block — matvecs become matmuls —
 and its Rayleigh-Ritz solve is a small (3K, 3K) eigh.
 
 Soft-locking variant with Cholesky-QR orthonormalization (f32-safe via one

@@ -1,22 +1,24 @@
-"""Pallas TPU kernels for the spectral stage.
+"""Pallas kernel for the local anchor embedding's FISTA loop, through Triton.
 
-Three custom kernels with jnp fallbacks (used automatically off-TPU); all are
-validated against the fallbacks in tests/test_pallas.py (interpret mode off
-hardware, compiled on the chip via bench.py, which also records the measured
-speedups each round).
+Under XLA the 150-iteration FISTA loop of ``ops.lae.lae_weights_xla`` is a
+``lax.scan`` whose every step makes several full passes over (n, r) arrays
+in device memory, plus a sort and a gather for the simplex projection.  The
+work per point is independent and has no matrix product, so here one Triton
+program owns a block of points: it loads that block's Gram entries
+``Gt (r², n)`` and linear terms ``bt (r, n)`` once, coalesced along the point
+axis, runs every iteration in registers with the r-structure unrolled, and
+writes ``w (r, n)`` once.  Tail points are masked on load and store.
 
-1. ``fused_lae``: the spectral stage's dominant cost (measured 1.73 s of the
-   2.19 s n=1e6 stage on v5e) is the 150-iteration FISTA loop of the local
-   anchor embedding — XLA lowers it as 150 sequential HBM passes of tiny
-   (n, r) ops.  Here each row block loads its Gram/linear term into VMEM once
-   and runs *all* iterations in-register: one HBM pass total.
+The kernel is reached only through ``ops.lae.lae_weights_t``, which picks it
+per lowering (``cuda``) and runs the XLA scan everywhere else; the point-major
+``ops.lae.lae_weights`` and the chunked ``ops.colmajor`` builder both call
+that.  ``interpret=True`` runs it through the Pallas
+interpreter on any backend; the tests use that on the CPU.
 
-2. ``fused_knn``: block-rows of X stream through VMEM, distances to the full
-   anchor set are computed on the MXU, and the r smallest are extracted
-   in-register — the (block, s) distance tile never round-trips to HBM.
-
-3. ``ell_matmat``: Z @ W for the ELL layout with row gathers of W recast as
-   one-hot MXU contractions against a VMEM-resident W.
+Limits: no gradient rule (nothing differentiates through the LAE weights),
+and not batched — ``pl.program_id(0)`` is the point-block index, which a
+``vmap`` around the call would re-target.  ``shard_map`` is fine: each shard
+runs the kernel on its local points.
 """
 
 from __future__ import annotations
@@ -25,122 +27,38 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
+# Points per Triton program.  At r=3 a point needs ~30 live registers, so
+# 256 points over 4 warps (2 points a thread) keeps the kernel far from the
+# 255-register limit, and n=1e6 gives 3,907 programs — ~30 waves over the
+# H100's 132 SMs, enough to hide the one load and one store each makes.
+LAE_BLOCK = 256
+LAE_NUM_WARPS = 4
 
 
-# ---------------------------------------------------------------------------
-# fused kNN: distances + top-r extraction per row block
-# ---------------------------------------------------------------------------
+def _lae_fista_kernel(gt_ref, bt_ref, w_ref, *, r: int, iters: int, block: int):
+    """FISTA for one block of points; every per-point quantity is one (block,)
+    vector and the r-wide recurrences are unrolled in Python.  The simplex
+    projection is an odd-even transposition sort network over the r vectors,
+    so there is no data-dependent control flow (src/lae.cpp:137-153)."""
+    n = w_ref.shape[1]
+    start = pl.program_id(0) * block
+    cols = pl.ds(start, block)
+    mask = start + jnp.arange(block, dtype=jnp.int32) < n
+    dtype = w_ref.dtype
 
+    # row indices as int32 beside the int32 program id: under x64 a bare
+    # Python int would make the interpreter's slice starts mixed-width
+    def load(ref, k):
+        return plt.load(ref.at[jnp.int32(k), cols], mask=mask, other=0.0).astype(dtype)
 
-def _knn_kernel(x_ref, u_ref, u2_ref, idx_ref, d_ref, *, r: int):
-    """One row-block: d = |x|² − 2xUᵀ + |u|², then r iterative min-extracts.
+    G = [[load(gt_ref, i * r + j) for j in range(r)] for i in range(r)]
+    b = [load(bt_ref, k) for k in range(r)]
 
-    r is small (3 in every reference config) so sequential extraction beats a
-    full sort; each pass is a masked row-min on the VPU.
-    """
-    x = x_ref[:]                               # (B, d)
-    x2 = jnp.sum(x * x, axis=1, keepdims=True)
-    d = x2 - 2.0 * jnp.dot(x, u_ref[:].T, preferred_element_type=jnp.float32,
-                           precision=jax.lax.Precision.HIGHEST)
-    d = d + u2_ref[:]                          # (B, s)
-    s = d.shape[1]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, d.shape, dimension=1)
-
-    taken = jnp.zeros_like(d, dtype=jnp.bool_)
-    # explicit dtypes on the python scalars: under jax_enable_x64 the weak
-    # int64/float64 promotion of bare `s`/`inf` recurses inside pallas
-    # tracing (RecursionError) — int32/f32 are what the kernel means anyway
-    s_i32 = jnp.int32(s)
-    inf_f = jnp.asarray(jnp.inf, d.dtype)
-    for k in range(r):
-        masked = jnp.where(taken, inf_f, d)
-        dmin = jnp.min(masked, axis=1, keepdims=True)
-        # first column achieving the min
-        is_min = masked == dmin
-        first = jnp.min(jnp.where(is_min, col_ids, s_i32), axis=1, keepdims=True)
-        idx_ref[:, k] = first[:, 0]
-        d_ref[:, k] = dmin[:, 0]
-        taken = jnp.logical_or(taken, col_ids == first)
-
-
-def fused_knn(X: jnp.ndarray, U: jnp.ndarray, r: int, block: int = 512,
-              interpret: bool = False, force: bool = False):
-    """TPU fused kNN; falls back to the matmul+top_k path off-TPU.
-
-    ``interpret=True`` runs the kernel through the Pallas interpreter on any
-    backend (correctness tests off-hardware); ``force=True`` skips the
-    process-default platform check for ``lax.platform_dependent`` dispatch."""
-    from .knn import knn_xla as knn_fallback
-
-    if not (_HAVE_PALLAS and (force or _on_tpu() or interpret)):
-        return knn_fallback(X, U, r)
-
-    n, d = X.shape
-    s = U.shape[0]
-    pad = (-n) % block
-    Xp = jnp.pad(X, ((0, pad), (0, 0))) if pad else X
-    u2 = jnp.sum(U * U, axis=1)[None, :]
-
-    idx, dists = pl.pallas_call(
-        functools.partial(_knn_kernel, r=r),
-        grid=(Xp.shape[0] // block,),
-        in_specs=[
-            pl.BlockSpec((block, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Xp.shape[0], r), jnp.int32),
-            jax.ShapeDtypeStruct((Xp.shape[0], r), X.dtype),
-        ],
-        interpret=interpret,
-    )(Xp, U, u2)
-
-    from .knn import KnnResult
-
-    return KnnResult(idx[:n], dists[:n])
-
-
-# ---------------------------------------------------------------------------
-# fused LAE: the whole FISTA loop in VMEM (one HBM pass over G, b)
-# ---------------------------------------------------------------------------
-
-
-def _lae_fista_kernel(G_ref, b_ref, out_ref, *, r: int, iters: int):
-    """All FISTA iterations on a VMEM-resident row block.
-
-    Data layout: the r-structure lives on the LEADING axis — every per-point
-    quantity is one of r separate (S, 128) full tiles (S = block/128
-    sublanes), so the VPU lanes are 100% utilized (a (block, r=3) layout
-    wastes 125/128 lanes — measured 3.9× vs XLA; this packing reaches ~40×).
-    The r-wide recurrences are unrolled in Python (r=3 in every reference
-    config); iterations run under fori_loop with full-tile carries.  Simplex
-    projection is an odd-even transposition sort network across the r arrays
-    — no data-dependent control flow (src/lae.cpp:137-153 semantics).
-    """
-    G = [[G_ref[i * r + j] for j in range(r)] for i in range(r)]  # (S, 128) each
-    b = [b_ref[k] for k in range(r)]
-
-    # Gershgorin bound on λmax(G) → fixed FISTA step 1/L
+    # Gershgorin bound on λmax(G) → fixed FISTA step 1/L (masked points have
+    # G = 0, b = 0 and so stay at their finite start value)
     L = None
     for i in range(r):
         row = jnp.abs(G[i][0])
@@ -153,9 +71,7 @@ def _lae_fista_kernel(G_ref, b_ref, out_ref, *, r: int, iters: int):
         u = list(w)
         for p in range(r):
             for i in range(p % 2, r - 1, 2):
-                hi = jnp.maximum(u[i], u[i + 1])
-                lo = jnp.minimum(u[i], u[i + 1])
-                u[i], u[i + 1] = hi, lo
+                u[i], u[i + 1] = jnp.maximum(u[i], u[i + 1]), jnp.minimum(u[i], u[i + 1])
         css = u[0]
         theta = css - 1.0
         for k in range(1, r):
@@ -164,589 +80,46 @@ def _lae_fista_kernel(G_ref, b_ref, out_ref, *, r: int, iters: int):
             theta = jnp.where(u[k] - cand > 0, cand, theta)
         return tuple(jnp.maximum(w[k] - theta, 0.0) for k in range(r))
 
-    # derive z0 from b (not a constant splat) so the loop carries get
-    # concrete, non-replicated layouts Mosaic can keep across iterations
-    z0 = tuple(b[k] * 0.0 + jnp.float32(1.0 / r) for k in range(r))
-
-    def body(it, carry):
+    def body(_, carry):
         z_prev, z, d_prev, d_curr = carry
         alpha = (d_prev - 1.0) / d_curr
         v = [z[k] + alpha * (z[k] - z_prev[k]) for k in range(r)]
         w = []
         for s_ in range(r):
-            g = -b[s_]
-            for k in range(r):
+            # Σ_k v_k G_ks first, then − b: the XLA scan's order of operations
+            g = v[0] * G[0][s_]
+            for k in range(1, r):
                 g = g + v[k] * G[k][s_]
-            w.append(v[s_] - inv_L * g)
-        z_next = project_simplex(w)
+            w.append(v[s_] - inv_L * (g - b[s_]))
         d_next = (1.0 + jnp.sqrt(1.0 + 4.0 * d_curr * d_curr)) / 2.0
-        return (z, z_next, d_curr, d_next)
+        return (z, project_simplex(w), d_curr, d_next)
 
+    z0 = tuple(jnp.full((block,), 1.0 / r, dtype) for _ in range(r))
     _, z, _, _ = jax.lax.fori_loop(
-        0, iters, body, (z0, z0, jnp.float32(0.0), jnp.float32(1.0))
+        0, iters, body, (z0, z0, jnp.asarray(0.0, dtype), jnp.asarray(1.0, dtype))
     )
     for k in range(r):
-        out_ref[k] = z[k].astype(out_ref.dtype)
+        plt.store(w_ref.at[jnp.int32(k), cols], z[k], mask=mask)
 
 
-def assemble_lae_gram_t(
-    X: jnp.ndarray,
-    anchors: jnp.ndarray,
-    knn_idx: jnp.ndarray,
-    chunk: int = 1 << 17,
-) -> tuple:
-    """Feature-major FISTA inputs: Gt (r², n) = flattened U_iU_iᵀ Grams and
-    bt (r, n) = U_i·x linear terms, assembled in row chunks.
-
-    A single whole-n gather `anchors[knn_idx]` materializes an (n, r, d)
-    array whose tiny trailing dims tile-pad to (4, 128) lanes — 20.48 GB at
-    n=1e7, the round-2 bench OOM.  Chunking with lax.map keeps the padded
-    intermediates O(chunk); the (r², n)/(r, n) outputs carry the point axis
-    minor, so they pad nothing."""
-    n, r = knn_idx.shape
-    d = X.shape[1]
-
-    def one(args):
-        xc, ic = args
-        Ui = anchors[ic]                          # (chunk, r, d)
-        G = jnp.einsum(
-            "nrd,nsd->nrs", Ui, Ui, precision=jax.lax.Precision.HIGHEST
-        ).reshape(ic.shape[0], r * r)
-        b = jnp.einsum("nd,nrd->nr", xc, Ui, precision=jax.lax.Precision.HIGHEST)
-        return G.T.astype(jnp.float32), b.T.astype(jnp.float32)
-
-    if n <= chunk:
-        return one((X, knn_idx))
-
-    pad = (-n) % chunk
-    Xp = jnp.pad(X, ((0, pad), (0, 0)))
-    Ip = jnp.pad(knn_idx, ((0, pad), (0, 0)))
-    Gs, bs = jax.lax.map(
-        one,
-        (Xp.reshape(-1, chunk, d), Ip.reshape(-1, chunk, r)),
-    )                                             # (nch, r², chunk), (nch, r, chunk)
-    Gt = jnp.moveaxis(Gs, 0, 1).reshape(r * r, -1)[:, :n]
-    bt = jnp.moveaxis(bs, 0, 1).reshape(r, -1)[:, :n]
-    return Gt, bt
-
-
-def fused_lae_tiles(
+def lae_fista_t(
     Gt: jnp.ndarray,
     bt: jnp.ndarray,
-    out_dtype,
     iters: int = 150,
-    block: int = 32768,
+    *,
+    block: int = LAE_BLOCK,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """Run the fused FISTA kernel on pre-assembled feature-major inputs:
-    Gt (r², n) f32, bt (r, n) f32 → weights (r, n).  This is the shared tail
-    of ``fused_lae`` and the column-major huge-n pipeline (ops.colmajor)."""
-    rsq, n = Gt.shape
-    r = bt.shape[0]
-    # small problems: shrink the block to the 128-padded point count so a
-    # 4800-row fit doesn't pad (and compile) at 32768 rows
-    block = min(block, ((n + 127) // 128) * 128)
-    pad = (-n) % block
-    if pad:
-        Gt = jnp.pad(Gt, ((0, 0), (0, pad)))
-        bt = jnp.pad(bt, ((0, 0), (0, pad)))
-    n_pad = Gt.shape[1]
-    # (c, n) → (c, n/128, 128): the point axis becomes full tiles
-    Gtt = Gt.reshape(rsq, n_pad // 128, 128)
-    btt = bt.reshape(r, n_pad // 128, 128)
-    S = block // 128
-
-    out = pl.pallas_call(
-        functools.partial(_lae_fista_kernel, r=r, iters=iters),
-        grid=(n_pad // block,),
-        in_specs=[
-            pl.BlockSpec((rsq, S, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((r, S, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((r, S, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((r, n_pad // 128, 128), out_dtype),
+    """FISTA simplex weights from feature-major inputs: Gt (r², n) flattened
+    per-point Grams U_iU_iᵀ and bt (r, n) linear terms U_i·x → (r, n), in
+    the dtype of ``bt``.  One Triton program per ``block`` points."""
+    r, n = bt.shape
+    assert Gt.shape == (r * r, n), (Gt.shape, bt.shape)
+    return pl.pallas_call(
+        functools.partial(_lae_fista_kernel, r=r, iters=iters, block=block),
+        grid=(pl.cdiv(n, block),),
+        out_shape=jax.ShapeDtypeStruct((r, n), bt.dtype),
+        compiler_params=plt.CompilerParams(num_warps=LAE_NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(Gtt, btt)
-    return out.reshape(r, n_pad)[:, :n]
-
-
-def fused_lae(
-    X: jnp.ndarray,
-    anchors: jnp.ndarray,
-    knn_idx: jnp.ndarray,
-    iters: int = 150,
-    block: int = 32768,
-    interpret: bool = False,
-    force: bool = False,
-) -> jnp.ndarray:
-    """TPU fused LAE weights (one HBM pass); jnp scan fallback elsewhere.
-
-    The Gram/linear terms are assembled by XLA in row chunks (see
-    ``assemble_lae_gram_t`` for why) directly into the feature-major layout;
-    the kernel owns the iteration loop.  ``force=True`` skips the
-    process-default platform check — used by the per-lowering
-    ``lax.platform_dependent`` dispatch in ops.lae."""
-    from .lae import lae_weights_xla
-
-    if not (_HAVE_PALLAS and (force or _on_tpu() or interpret)):
-        return lae_weights_xla(X, anchors, knn_idx, iters)
-
-    n, r = knn_idx.shape
-    Gt, bt = assemble_lae_gram_t(X, anchors, knn_idx)
-    out = fused_lae_tiles(Gt, bt, X.dtype, iters=iters, block=block, interpret=interpret)
-    return out.T
-
-
-# ---------------------------------------------------------------------------
-# Fused ELL normalization + Gram/colsum kernels (the spectral-stage tail)
-#
-# Why: at n=1e6 the graph tail (colsum scatters + scale passes + the Gram)
-# costs ~200 ms under XLA — TPU scatter-adds run ~18 ns/element (55 ms for
-# one 3e6-element colsum) and the dense-block Gram burns 2.1 TFLOP on
-# mostly-zero matmuls.  These kernels recast every scatter as a one-hot
-# contraction and keep the (s,)/(s, s) accumulators VMEM-resident across a
-# sequential grid, so the whole tail is ONE streaming HBM pass over the
-# 24 MB of compact (n, r) graph data per kernel.
-#
-# The algebraic fusion (exact, just reassociated): with C = colsum(Z),
-# column scale c (1/(C+eps), cluster-scaled, or ones), Z₁ = Z·diag(c),
-# R = rowsum(Z₁), Zₙ = diag(1/(R+eps))·Z₁, D = colsum(Zₙ) and
-# A = Zₙ·diag(1/√(|D|+eps)):
-#
-#     AᵀA = diag(dinv)·(ZₙᵀZₙ)·diag(dinv)
-#
-# so one pass yields BOTH Ĝ = ZₙᵀZₙ and D, and the spectrum's A-scaling
-# becomes a free (s, s) elementwise epilogue.
-#
-# NOT VMAP-SAFE: the accumulating kernels initialize their VMEM output on
-# `pl.program_id(0) == 0`; pallas_call's batching rule PREPENDS a grid
-# dimension, which would silently re-target that guard at the batch index.
-# Every caller (ops.spectrum.spectrum_fused, ops.colmajor, fit.spectral,
-# fit.streaming) is unbatched — keep it that way, or add an explicit
-# batch-grid variant before vmapping.
-# ---------------------------------------------------------------------------
-
-
-def _ell_colsum_kernel(vals_ref, idx_ref, out_ref, *, r: int):
-    """Column sums of an ELL matrix: one-hot rows contracted on the MXU,
-    accumulated into a VMEM-resident (1, s) output across the grid."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    s = out_ref.shape[1]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (idx_ref.shape[0], s), 1)
-    acc = jnp.zeros((1, s), jnp.float32)
-    for k in range(r):
-        onehot = (idx_ref[:, k][:, None] == col_ids).astype(jnp.float32)
-        acc = acc + jnp.dot(
-            vals_ref[:, k][None, :], onehot, preferred_element_type=jnp.float32
-        )
-    out_ref[:] += acc.astype(out_ref.dtype)
-
-
-def ell_colsum(values: jnp.ndarray, indices: jnp.ndarray, s: int,
-               block: int = 1024, interpret: bool = False) -> jnp.ndarray:
-    """(n, r)-ELL column sums on TPU; scatter-add fallback elsewhere."""
-    n, r = values.shape
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        return jnp.zeros((s,), values.dtype).at[indices.reshape(-1)].add(
-            values.reshape(-1)
-        )
-    pad = (-n) % block
-    vp = jnp.pad(values, ((0, pad), (0, 0))) if pad else values
-    ip = jnp.pad(indices, ((0, pad), (0, 0))) if pad else indices
-    out = pl.pallas_call(
-        functools.partial(_ell_colsum_kernel, r=r),
-        grid=(vp.shape[0] // block,),
-        in_specs=[
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, s), values.dtype),
-        interpret=interpret,
-    )(vp, ip)
-    return out[0]
-
-
-def _ell_norm_gram_kernel(vals_ref, idx_ref, cscale_ref, gram_ref, d_ref,
-                          *, r: int, eps: float):
-    """Per block: normalize inline (column scale gathered by one-hot matvec,
-    then row-normalize), densify via one-hot selects, and accumulate BOTH
-    Ĝ += denseᵀ·dense (MXU) and D += Σ_rows dense (VPU) in VMEM."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init():
-        gram_ref[:] = jnp.zeros_like(gram_ref)
-        d_ref[:] = jnp.zeros_like(d_ref)
-
-    s = gram_ref.shape[0]
-    B = vals_ref.shape[0]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (B, s), 1)
-    onehots = [
-        (idx_ref[:, k][:, None] == col_ids).astype(jnp.float32) for k in range(r)
-    ]
-    cs = cscale_ref[:]                                     # (1, s)
-    w1 = []
-    rs = None
-    for k in range(r):
-        cg = jnp.dot(onehots[k], cs[0][:, None], preferred_element_type=jnp.float32)
-        w1k = vals_ref[:, k][:, None] * cg                 # (B, 1)
-        w1.append(w1k)
-        rs = w1k if rs is None else rs + w1k
-    rinv = 1.0 / (rs + eps)
-    dense = None
-    for k in range(r):
-        contrib = onehots[k] * (w1[k] * rinv)
-        dense = contrib if dense is None else dense + contrib
-    d_ref[:] += jnp.sum(dense, axis=0, keepdims=True).astype(d_ref.dtype)
-    gram_ref[:] += jnp.dot(
-        dense.T, dense, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    ).astype(gram_ref.dtype)
-
-
-def ell_norm_gram(values: jnp.ndarray, indices: jnp.ndarray,
-                  cscale: jnp.ndarray, block: int = 512,
-                  interpret: bool = False, eps: float = 1e-9):
-    """Fused normalize+Gram: returns (Ĝ = ZₙᵀZₙ (s, s), D = colsum(Zₙ) (s,))
-    for Zₙ = rownorm(Z·diag(cscale)).  One HBM pass on TPU; exact EllMatrix
-    composition as the fallback elsewhere."""
-    n, r = values.shape
-    s = cscale.shape[0]
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        from ..types import EllMatrix
-
-        Z = EllMatrix(values, indices, s).scale_cols(cscale)
-        Zn = Z.scale_rows(1.0 / (Z.rowsum() + eps))
-        return Zn.gram(), Zn.colsum()
-    pad = (-n) % block
-    vp = jnp.pad(values, ((0, pad), (0, 0))) if pad else values
-    ip = jnp.pad(indices, ((0, pad), (0, 0))) if pad else indices
-    G, D = pl.pallas_call(
-        functools.partial(_ell_norm_gram_kernel, r=r, eps=eps),
-        grid=(vp.shape[0] // block,),
-        in_specs=[
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((s, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((s, s), values.dtype),
-            jax.ShapeDtypeStruct((1, s), values.dtype),
-        ],
-        interpret=interpret,
-    )(vp, ip, cscale[None, :])
-    return G, D[0]
-
-
-def _ell_norm_matmat_kernel(vals_ref, idx_ref, cscale_ref, w_ref, out_ref,
-                            *, r: int, eps: float):
-    """Zₙ @ W with the normalization recomputed inline (same one-hot algebra
-    as the Gram kernel) — the eigenvector extension never materializes Zₙ."""
-    s = w_ref.shape[0]
-    B = vals_ref.shape[0]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (B, s), 1)
-    cs = cscale_ref[:]
-    w = w_ref[:]
-    onehots = [
-        (idx_ref[:, k][:, None] == col_ids).astype(jnp.float32) for k in range(r)
-    ]
-    w1 = []
-    rs = None
-    for k in range(r):
-        cg = jnp.dot(onehots[k], cs[0][:, None], preferred_element_type=jnp.float32)
-        w1k = vals_ref[:, k][:, None] * cg
-        w1.append(w1k)
-        rs = w1k if rs is None else rs + w1k
-    rinv = 1.0 / (rs + eps)
-    acc = jnp.zeros(out_ref.shape, jnp.float32)
-    for k in range(r):
-        gath = jnp.dot(onehots[k], w, preferred_element_type=jnp.float32)
-        acc = acc + (w1[k] * rinv) * gath
-    out_ref[:] = acc.astype(out_ref.dtype)
-
-
-def ell_norm_matmat(values: jnp.ndarray, indices: jnp.ndarray,
-                    cscale: jnp.ndarray, W: jnp.ndarray, block: int = 1024,
-                    interpret: bool = False, eps: float = 1e-9) -> jnp.ndarray:
-    """rownorm(Z·diag(cscale)) @ W on TPU; EllMatrix fallback elsewhere."""
-    n, r = values.shape
-    s, K = W.shape
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        from ..types import EllMatrix
-
-        Z = EllMatrix(values, indices, s).scale_cols(cscale)
-        Zn = Z.scale_rows(1.0 / (Z.rowsum() + eps))
-        return Zn.matmat(W)
-    pad = (-n) % block
-    vp = jnp.pad(values, ((0, pad), (0, 0))) if pad else values
-    ip = jnp.pad(indices, ((0, pad), (0, 0))) if pad else indices
-    out = pl.pallas_call(
-        functools.partial(_ell_norm_matmat_kernel, r=r, eps=eps),
-        grid=(vp.shape[0] // block,),
-        in_specs=[
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s, K), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block, K), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((vp.shape[0], K), W.dtype),
-        interpret=interpret,
-    )(vp, ip, cscale[None, :], W)
-    return out[:n]
-
-
-# ---------------------------------------------------------------------------
-# Feature-major (chunked colmajor) variants of the fused tail kernels.
-#
-# The huge-n pipeline (ops.colmajor) carries the graph as (nch, r, c) with
-# the point axis minor — transposing to the (n, r) layout the kernels above
-# read is exactly the lane-padded copy that layout exists to avoid.  These
-# variants read (r, cblk) tiles directly (2-D grid over chunks × column
-# blocks); the math is identical.
-# ---------------------------------------------------------------------------
-
-
-def _ell_colsum_t_kernel(vals_ref, idx_ref, out_ref, *, r: int):
-    i, j = pl.program_id(0), pl.program_id(1)
-
-    @pl.when(jnp.logical_and(i == 0, j == 0))
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    s = out_ref.shape[1]
-    B = vals_ref.shape[2]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (B, s), 1)
-    acc = jnp.zeros((1, s), jnp.float32)
-    for k in range(r):
-        onehot = (idx_ref[0, k][:, None] == col_ids).astype(jnp.float32)
-        acc = acc + jnp.dot(
-            vals_ref[0, k][None, :], onehot, preferred_element_type=jnp.float32
-        )
-    out_ref[:] += acc.astype(out_ref.dtype)
-
-
-def ell_colsum_t(values: jnp.ndarray, indices: jnp.ndarray, s: int,
-                 block: int = 1024, interpret: bool = False) -> jnp.ndarray:
-    """Column sums of a chunked (nch, r, c) feature-major ELL graph.
-    Pad points must carry zero weights (the colmajor builder's contract)."""
-    nch, r, c = values.shape
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        return jnp.zeros((s,), values.dtype).at[indices.reshape(-1)].add(
-            values.reshape(-1)
-        )
-    block = min(block, c)
-    assert c % block == 0, "colmajor chunk must divide the kernel block"
-    out = pl.pallas_call(
-        functools.partial(_ell_colsum_t_kernel, r=r),
-        grid=(nch, c // block),
-        in_specs=[
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, s), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, s), values.dtype),
-        interpret=interpret,
-    )(values, indices)
-    return out[0]
-
-
-def _ell_norm_gram_t_kernel(vals_ref, idx_ref, cscale_ref, gram_ref, d_ref,
-                            *, r: int, eps: float):
-    i, j = pl.program_id(0), pl.program_id(1)
-
-    @pl.when(jnp.logical_and(i == 0, j == 0))
-    def _init():
-        gram_ref[:] = jnp.zeros_like(gram_ref)
-        d_ref[:] = jnp.zeros_like(d_ref)
-
-    s = gram_ref.shape[0]
-    B = vals_ref.shape[2]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (B, s), 1)
-    onehots = [
-        (idx_ref[0, k][:, None] == col_ids).astype(jnp.float32) for k in range(r)
-    ]
-    cs = cscale_ref[:]
-    w1 = []
-    rs = None
-    for k in range(r):
-        cg = jnp.dot(onehots[k], cs[0][:, None], preferred_element_type=jnp.float32)
-        w1k = vals_ref[0, k][:, None] * cg
-        w1.append(w1k)
-        rs = w1k if rs is None else rs + w1k
-    rinv = 1.0 / (rs + eps)
-    dense = None
-    for k in range(r):
-        contrib = onehots[k] * (w1[k] * rinv)
-        dense = contrib if dense is None else dense + contrib
-    d_ref[:] += jnp.sum(dense, axis=0, keepdims=True).astype(d_ref.dtype)
-    gram_ref[:] += jnp.dot(
-        dense.T, dense, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    ).astype(gram_ref.dtype)
-
-
-def ell_norm_gram_t(values: jnp.ndarray, indices: jnp.ndarray,
-                    cscale: jnp.ndarray, block: int = 512,
-                    interpret: bool = False, eps: float = 1e-9):
-    """Fused normalize+Gram on the chunked feature-major layout: returns
-    (Ĝ = ZₙᵀZₙ, D = colsum(Zₙ)) for Zₙ = rownorm(Z·diag(cscale)).
-
-    CONTRACT: pad points must carry zero weights — a zero row normalizes to
-    zero (0·cscale·(1/eps) = 0), so pads contribute nothing, matching the
-    colmajor builder's masking."""
-    nch, r, c = values.shape
-    s = cscale.shape[0]
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        w1 = values * cscale[indices]
-        rs = jnp.sum(w1, axis=1, keepdims=True)
-        wn = w1 / (rs + eps)
-        flat_i = indices.reshape(-1)
-        flat_w = wn.reshape(-1)
-        D = jnp.zeros((s,), values.dtype).at[flat_i].add(flat_w)
-        # dense gram via pair scatter (small-scale fallback only)
-        vv = (wn[:, :, None, :] * wn[:, None, :, :]).reshape(-1)
-        fi = (
-            indices[:, :, None, :] * s + indices[:, None, :, :]
-        ).reshape(-1)
-        G = jnp.zeros((s * s,), values.dtype).at[fi].add(vv).reshape(s, s)
-        return G, D
-    block = min(block, c)
-    assert c % block == 0, "colmajor chunk must divide the kernel block"
-    G, D = pl.pallas_call(
-        functools.partial(_ell_norm_gram_t_kernel, r=r, eps=eps),
-        grid=(nch, c // block),
-        in_specs=[
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((s, s), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((s, s), values.dtype),
-            jax.ShapeDtypeStruct((1, s), values.dtype),
-        ],
-        interpret=interpret,
-    )(values, indices, cscale[None, :])
-    return G, D[0]
-
-
-def _ell_norm_matmat_t_kernel(vals_ref, idx_ref, cscale_ref, w_ref, out_ref,
-                              *, r: int, eps: float):
-    s = w_ref.shape[0]
-    B = vals_ref.shape[2]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (B, s), 1)
-    cs = cscale_ref[:]
-    w = w_ref[:]
-    onehots = [
-        (idx_ref[0, k][:, None] == col_ids).astype(jnp.float32) for k in range(r)
-    ]
-    w1 = []
-    rs = None
-    for k in range(r):
-        cg = jnp.dot(onehots[k], cs[0][:, None], preferred_element_type=jnp.float32)
-        w1k = vals_ref[0, k][:, None] * cg
-        w1.append(w1k)
-        rs = w1k if rs is None else rs + w1k
-    rinv = 1.0 / (rs + eps)
-    acc = jnp.zeros(out_ref.shape, jnp.float32)
-    for k in range(r):
-        gath = jnp.dot(onehots[k], w, preferred_element_type=jnp.float32)
-        acc = acc + (w1[k] * rinv) * gath
-    out_ref[:] = acc.astype(out_ref.dtype)
-
-
-def ell_norm_matmat_t(values: jnp.ndarray, indices: jnp.ndarray,
-                      cscale: jnp.ndarray, W: jnp.ndarray, block: int = 1024,
-                      interpret: bool = False, eps: float = 1e-9) -> jnp.ndarray:
-    """rownorm(Z·diag(cscale)) @ W from the chunked feature-major layout —
-    output (nch·c, K) point-major (K ≥ 128 in the huge-n configs, so the
-    output pads nothing).  Same zero-pad-row contract as ell_norm_gram_t."""
-    nch, r, c = values.shape
-    s, K = W.shape
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        w1 = values * cscale[indices]
-        rs = jnp.sum(w1, axis=1, keepdims=True)
-        wn = w1 / (rs + eps)
-        out = jnp.einsum("nrc,nrck->nck", wn, W[indices])
-        return out.reshape(nch * c, K)
-    block = min(block, c)
-    assert c % block == 0, "colmajor chunk must divide the kernel block"
-    nblk = c // block
-    out = pl.pallas_call(
-        functools.partial(_ell_norm_matmat_t_kernel, r=r, eps=eps),
-        grid=(nch, nblk),
-        in_specs=[
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, r, block), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s, K), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (block, K), lambda i, j: (i * nblk + j, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nch * c, K), W.dtype),
-        interpret=interpret,
-    )(values, indices, cscale[None, :], W)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# ELL matmat: Z @ W with streamed row blocks
-# ---------------------------------------------------------------------------
-
-
-def _ell_matmat_kernel(vals_ref, idx_ref, w_ref, out_ref, *, r: int):
-    """Row gathers of W recast as one-hot × W matmuls: Mosaic has no general
-    gather, and a (block, s) one-hot contraction rides the MXU with W resident
-    in VMEM — the (n, r, K) gathered intermediate XLA materializes in HBM
-    never exists."""
-    w = w_ref[:]                               # (s, K) in VMEM
-    s = w.shape[0]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (idx_ref.shape[0], s), 1)
-    acc = jnp.zeros(out_ref.shape, dtype=jnp.float32)
-    for k in range(r):
-        onehot = (idx_ref[:, k][:, None] == col_ids).astype(w.dtype)
-        gath = jnp.dot(onehot, w, preferred_element_type=jnp.float32)
-        acc = acc + vals_ref[:, k][:, None] * gath
-    out_ref[:] = acc.astype(out_ref.dtype)
-
-
-def ell_matmat(values: jnp.ndarray, indices: jnp.ndarray, W: jnp.ndarray, block: int = 1024,
-               interpret: bool = False):
-    """(n, s)-ELL @ (s, K) on TPU; jnp gather fallback elsewhere."""
-    n, r = values.shape
-    s, K = W.shape
-    if not (_HAVE_PALLAS and (_on_tpu() or interpret)):
-        return jnp.einsum("nr,nrk->nk", values, W[indices])
-
-    pad = (-n) % block
-    vp = jnp.pad(values, ((0, pad), (0, 0))) if pad else values
-    ip = jnp.pad(indices, ((0, pad), (0, 0))) if pad else indices
-
-    out = pl.pallas_call(
-        functools.partial(_ell_matmat_kernel, r=r),
-        grid=(vp.shape[0] // block,),
-        in_specs=[
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, r), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s, K), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block, K), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((vp.shape[0], K), W.dtype),
-        interpret=interpret,
-    )(vp, ip, W)
-    return out[:n]
+        name="lae_fista",
+    )(Gt.astype(bt.dtype), bt)

@@ -3,18 +3,17 @@
 The reference forms A = Z·diag(colsum)^(-1/2) and truncated-SVDs A via a
 host round-trip into RSpectra's implicitly-restarted Lanczos
 (src/Spectrum.cpp:146-161, src/TruncatedSVD.cpp:9-34).  Sequential Lanczos is
-a poor fit for the TPU; instead we compute the exact (s, s) Gram AᵀA with
-blocked MXU matmuls and take a single eigh: eig(W) = σ²(A) = eig(AᵀA), and the
+a poor fit for an accelerator; instead we compute the exact (s, s) Gram AᵀA
+with blocked matmuls and take a single eigh: eig(W) = σ²(A) = eig(AᵀA), and the
 left singular vectors follow as U = A·V·Σ⁻¹.  Exact, batched (vmappable over
 bandwidth grids), and differentiable.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-from ..config import EPS, KernelType, LaplacianType
+from ..config import EPS, LaplacianType
 from ..types import EigenPair, EllMatrix
 from .knn import knn
 from .lae import lae_weights
@@ -61,69 +60,12 @@ def spectrum_fused(
     root: bool,
     cluster_sizes: jnp.ndarray | None = None,
 ) -> EigenPair:
-    """normalize_graph_laplacian + spectrum_from_Z from the RAW ELL graph,
-    with the Pallas fused tail on TPU lowerings.
-
-    Identical math to the composition (tests gate equality); the fusion is
-    pure reassociation:  AᵀA = diag(dinv)·(ZₙᵀZₙ)·diag(dinv)  with
-    D = colsum(Zₙ), so one kernel pass yields both Ĝ and D, and a second
-    yields the eigenvector extension with every diagonal scale folded into
-    the (s, K) operand.  Why it exists: at n=1e6 the XLA tail spends ~200 ms
-    in 18 ns/element scatter-adds and a 2.1 TFLOP mostly-zero dense-block
-    Gram (measured round 5) — the kernels replace both with streaming
-    one-hot contractions over the compact 24 MB ELL arrays.
-
-    Pallas is gated off under x64 (Mosaic rejects i64 index maps — see
-    CLAUDE.md) and off-TPU; the fallback is the exact op composition.
-    """
+    """normalize_graph_laplacian + spectrum_from_Z from the RAW ELL graph:
+    the whole spectral tail (column scale, row normalization, Gram, eigh,
+    eigenvector extension) from the kNN indices and kernel weights."""
     gl = LaplacianType(gl)
-    if gl == LaplacianType.CLUSTER_NORMALIZED and cluster_sizes is None:
-        raise ValueError("cluster-normalized Laplacian requires cluster sizes")
-
-    def _fallback(values, indices, cluster_sizes):
-        Z = EllMatrix(values, indices, s)
-        Z = normalize_graph_laplacian(Z, gl, cluster_sizes)
-        return spectrum_from_Z(Z, K, root)
-
-    from .pallas_kernels import _HAVE_PALLAS, ell_colsum, ell_norm_gram, ell_norm_matmat
-
-    # x64 gate: Mosaic rejects i64 index maps/loop counters (CLAUDE.md) —
-    # the f64 parity path takes the exact XLA composition
-    if (
-        not _HAVE_PALLAS
-        or values.dtype != jnp.float32
-        or jax.config.jax_enable_x64
-    ):
-        return _fallback(values, indices, cluster_sizes)
-
-    def _fused(values, indices, cluster_sizes):
-        n = values.shape[0]
-        if gl == LaplacianType.RW:
-            cscale = jnp.ones((s,), values.dtype)
-        else:
-            C = ell_colsum(values, indices, s)
-            cscale = 1.0 / (C + EPS)
-            if gl == LaplacianType.CLUSTER_NORMALIZED:
-                cscale = cscale * cluster_sizes.astype(values.dtype)
-        Ghat, D = ell_norm_gram(values, indices, cscale, eps=EPS)
-        dinv = 1.0 / jnp.sqrt(jnp.abs(D) + EPS)
-        G = Ghat * dinv[:, None] * dinv[None, :]
-        w, V = jnp.linalg.eigh(G)
-        w = w[::-1][:K]
-        V = V[:, ::-1][:, :K]
-        sigma2 = jnp.maximum(w, 0.0)
-        sigma = jnp.sqrt(sigma2)
-        # vectors = A·V·σ⁻¹·√n = Zₙ @ (dinv ⊙ V ⊙ √n/(σ+EPS))
-        W_eff = dinv[:, None] * V * (jnp.sqrt(jnp.asarray(n, values.dtype)) / (sigma + EPS))[None, :]
-        vectors = ell_norm_matmat(values, indices, cscale, W_eff, eps=EPS)
-        return EigenPair(sigma if root else sigma2, vectors)
-
-    if cluster_sizes is None:
-        cluster_sizes = jnp.ones((s,), values.dtype)
-    return jax.lax.platform_dependent(
-        values, indices, cluster_sizes,
-        tpu=_fused, default=_fallback,
-    )
+    Z = normalize_graph_laplacian(EllMatrix(values, indices, s), gl, cluster_sizes)
+    return spectrum_from_Z(Z, K, root)
 
 
 def spectrum_from_Z(Z: EllMatrix, K: int, root: bool) -> EigenPair:

@@ -5,7 +5,7 @@ the hot loop; cross-chain statistics (R̂, pooled step-size summaries, SMC
 resampling) are the only communication points.  With C chains on D devices
 each device integrates C/D chains, batched by the inner vmap of
 ``inference.hmc.run_hmc`` — leapfrog gradient evaluations for all local
-chains fuse into single batched matmuls on the MXU.
+chains fuse into single batched matmuls.
 """
 
 from __future__ import annotations

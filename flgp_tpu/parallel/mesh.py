@@ -27,21 +27,20 @@ def init_distributed(
     """Multi-host runtime bootstrap (SURVEY §5 'distributed backend').
 
     Wires ``jax.distributed.initialize`` from explicit arguments or the
-    standard environment (``FLGP_COORDINATOR``/``FLGP_NUM_PROCESSES``/
-    ``FLGP_PROCESS_ID``, falling back to JAX's own cluster autodetection on
-    TPU pods, where all three may be None).  Idempotent: returns False when
-    no multi-process configuration is present (single-process mode), True
-    once the global runtime is up.  After a True return ``jax.devices()``
-    spans every host and :func:`global_mesh` builds process-aware meshes;
-    collectives ride ICI within a slice and DCN across slices.
+    environment (``FLGP_COORDINATOR``/``FLGP_NUM_PROCESSES``/
+    ``FLGP_PROCESS_ID``); nothing is autodetected, so a multi-process run
+    names its coordinator (e.g. ``localhost:<port>``), process count and
+    process id.  Idempotent: returns False when no multi-process
+    configuration is present (single-process mode), True once the global
+    runtime is up.  After a True return ``jax.devices()`` spans every
+    process and :func:`global_mesh` builds meshes over all of them.
     """
     coordinator_address = coordinator_address or os.environ.get("FLGP_COORDINATOR")
     if num_processes is None and "FLGP_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["FLGP_NUM_PROCESSES"])
     if process_id is None and "FLGP_PROCESS_ID" in os.environ:
         process_id = int(os.environ["FLGP_PROCESS_ID"])
-    on_tpu_pod = any(v in os.environ for v in ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"))
-    if coordinator_address is None and num_processes is None and not on_tpu_pod:
+    if coordinator_address is None and num_processes is None:
         return False
     # idempotence probe that does NOT touch the XLA backend (jax.process_count
     # would initialize it, after which jax.distributed.initialize refuses)
@@ -59,10 +58,10 @@ def global_mesh(
     axis_names: Sequence[str] = ("data",),
     shape: Optional[Sequence[int]] = None,
 ) -> Mesh:
-    """Process-aware mesh over ALL devices (every host's), laid out so the
-    leading axis varies slowest across processes — row shards of the
-    n-sharded spectral stage land one-per-host block, keeping the Gram psum
-    on ICI within a host and only the (s, s) reduction on DCN."""
+    """Mesh over ALL devices (every process's) in ``jax.devices()`` order,
+    which groups each process's devices together.  No topology is assumed:
+    the cards of one host are joined all to all, so the mesh follows the
+    algorithm alone."""
     devices = jax.devices()
     if shape is None:
         shape = (len(devices),) + (1,) * (len(axis_names) - 1)

@@ -2,7 +2,7 @@
 
 The reference stores the cross-similarity matrix Z as an Eigen row-major CSR
 sparse matrix with exactly ``r`` nonzeros per row (src/lae.cpp:60-67,
-src/Utils.cpp:146-189).  On TPU, dynamic sparsity is hostile to XLA; a fixed
+src/Utils.cpp:146-189).  Dynamic sparsity is hostile to XLA; a fixed
 fan-in ELL layout — dense ``(n, r)`` values plus ``(n, r)`` column indices —
 keeps every downstream op (column sums, normalizations, mat-vecs, Gram
 matrices) a gather / segment-sum / blocked matmul with static shapes.
@@ -123,8 +123,8 @@ class EllMatrix:
     def gram(self, block: int = 2048) -> jnp.ndarray:
         """ZᵀZ as a dense (s, s) matrix.
 
-        TPU-first strategy: densify row blocks into (block, s) tiles and
-        accumulate blockᵀ @ block on the MXU.  This replaces the sequential
+        Densify row blocks into (block, s) tiles and accumulate
+        blockᵀ @ block with matmuls.  This replaces the sequential
         Lanczos the reference delegates to RSpectra (src/TruncatedSVD.cpp:23-28)
         with one exact Gram + eigh.
         """

@@ -13,7 +13,7 @@ goldens were committed on (see PARITY.md).
 Implementation note: this is a from-scratch transcription of the published
 AS 136 algorithm (optimal-transfer + quick-transfer stages with live sets),
 not a port of R's Fortran/C sources.  Host NumPy is appropriate — it runs
-once per parity fit on a (n≈4000, k≈500) problem; the production TPU
+once per parity fit on a (n≈4000, k≈500) problem; the production
 subsampler is ops.kmeans.
 """
 

@@ -13,13 +13,12 @@ import pytest
 
 from flgp_tpu.config import KernelType, LaplacianType
 from flgp_tpu.ops.colmajor import (
-    _fista_t_xla,
     build_graph_colmajor,
     heat_kernel_spectrum_colmajor,
     normalize_colmajor,
 )
 from flgp_tpu.ops.knn import knn
-from flgp_tpu.ops.lae import lae_weights_xla
+from flgp_tpu.ops.lae import _fista_t_xla, lae_weights_xla
 from flgp_tpu.ops.laplacian import normalize_graph_laplacian
 from flgp_tpu.ops.spectrum import cross_similarity_lae, cross_similarity_se, spectrum_from_Z
 from flgp_tpu.types import EllMatrix
@@ -137,7 +136,7 @@ class TestFullPipeline:
 
 class TestColmajorAnchors:
     """k-means anchors + cluster sizes on the feature-major path (the n=1e7
-    bench previously drew random rows — VERDICT r4 §missing-2)."""
+    bench previously drew random rows)."""
 
     def test_kmeans_anchors_find_blobs(self):
         from flgp_tpu.ops.colmajor import kmeans_anchors_colmajor

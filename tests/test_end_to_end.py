@@ -231,7 +231,7 @@ class TestDigits:
         idx = jnp.arange(200)
         quad = mult_t_quadrature(eig, aug, idx, 50, 1e-3)
         assert (np.asarray(quad.t_sd) > 0).all()
-        # resolution guard (ADVICE r4): the coarse pass must not have
+        # resolution guard: the coarse pass must not have
         # collapsed onto one grid cell, and the refined two-pass moments must
         # be grid-converged — a 3x-coarser budget lands on the same answer
         assert float(quad.coarse_max_weight) < 0.5

@@ -123,7 +123,7 @@ class TestLogpostPrecision:
 class TestChees:
     """Cross-chain-adaptive trajectory-length HMC (inference.chees): the
     wide-batch replacement for vmapped NUTS (whose lockstep tree-doubling
-    collapses past ~1024 chains — VERDICT r4 §1)."""
+    collapses past ~1024 chains)."""
 
     def test_halton_low_discrepancy(self):
         h = np.asarray(jax.vmap(halton2)(jnp.arange(1, 257, dtype=jnp.int32)))

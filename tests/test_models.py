@@ -289,7 +289,7 @@ class TestOptimizers:
         res = minimize_t_noise(fn, dtype=jnp.float64)
         np.testing.assert_allclose(float(jnp.log(res.t)), 0.5, atol=0.05)
         np.testing.assert_allclose(float(jnp.log(res.noise)), -1.0, atol=0.05)
-        # status gradient describes the RETURNED point (ADVICE r4)
+        # status gradient describes the RETURNED point
         assert float(res.grad_norm) < 0.2
 
     def test_t_noisevec_multimodal_grid_seeding(self):
@@ -297,7 +297,7 @@ class TestOptimizers:
         shallow local basin at u=1 (next to the old fixed start u≈2.3) and
         the global basin at u=6.  Adam from the fixed start provably lands in
         the wrong basin; the coarse (t, homoscedastic-noise) grid seeding
-        must find the global one (VERDICT r4 #7)."""
+        must find the global one."""
         from flgp_tpu.inference.optimize import minimize_t_noisevec
 
         m = 5

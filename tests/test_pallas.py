@@ -1,127 +1,179 @@
-"""Pallas TPU kernel correctness via the interpreter (runs on CPU).
-
-The same kernels execute compiled on real TPU hardware inside bench.py; these
-tests pin their semantics against the jnp reference paths on every platform.
+"""The Pallas-Triton LAE FISTA kernel, checked on the CPU through the Pallas
+interpreter against the XLA scan (ops.lae.lae_weights_xla) and a scipy
+simplex-QP oracle; the per-lowering choice of kernel; and the spectral tail
+that the kernels it replaced used to run.  The compiled kernel is compared
+with the XLA path on the card by the ``gpu``-marked test below and by
+chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.optimize
 
 from flgp_tpu.ops import pallas_kernels as pk
 from flgp_tpu.ops.knn import knn
+from flgp_tpu.ops.lae import (
+    _fista_t_xla,
+    assemble_lae_gram_t,
+    lae_weights,
+    lae_weights_t,
+    lae_weights_xla,
+)
 
 
-@pytest.mark.skipif(not pk._HAVE_PALLAS, reason="pallas unavailable")
-class TestFusedKnn:
-    def test_matches_topk_path(self, rng):
-        n, d, s, r = 96, 5, 40, 3
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        got = pk.fused_knn(X, U, r, block=32, interpret=True)
-        ref = knn(X, U, r)
-        np.testing.assert_array_equal(np.asarray(got.indices), np.asarray(ref.indices))
-        np.testing.assert_allclose(
-            np.asarray(got.sqdists), np.asarray(ref.sqdists), rtol=1e-4, atol=1e-4
+def _problem(rng, n, d, s, r, dtype):
+    X = jnp.asarray(rng.normal(size=(n, d)), dtype)
+    U = jnp.asarray(rng.normal(size=(s, d)), dtype)
+    return X, U, knn(X, U, r).indices
+
+
+def _kernel_weights(X, U, idx, iters):
+    """(n, r) weights from the Triton kernel, run by the Pallas interpreter."""
+    return pk.lae_fista_t(*assemble_lae_gram_t(X, U, idx), iters, interpret=True).T
+
+
+def _qp_objective_gap(X, U, idx, w):
+    """Largest amount by which w's objective exceeds scipy's SLSQP optimum
+    of min ‖x − zᵀU_i‖² over the simplex (tests/test_ops_core.py oracle)."""
+    X, U, idx, w = map(np.asarray, (X, U, idx, w))
+    r = idx.shape[1]
+    gap = -np.inf
+    for i in range(X.shape[0]):
+        Ui = U[idx[i]].astype(np.float64)
+        xi = X[i].astype(np.float64)
+
+        def obj(z):
+            return 0.5 * ((xi - z @ Ui) ** 2).sum()
+
+        res = scipy.optimize.minimize(
+            obj, np.ones(r) / r,
+            constraints=[{"type": "eq", "fun": lambda z: z.sum() - 1}],
+            bounds=[(0, None)] * r, method="SLSQP",
         )
-
-    def test_padding_rows(self, rng):
-        # n not a multiple of block exercises the pad/slice path
-        n, d, s, r = 50, 3, 16, 2
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        got = pk.fused_knn(X, U, r, block=32, interpret=True)
-        ref = knn(X, U, r)
-        np.testing.assert_array_equal(np.asarray(got.indices), np.asarray(ref.indices))
+        gap = max(gap, obj(w[i].astype(np.float64)) - obj(res.x))
+    return gap
 
 
-@pytest.mark.skipif(not pk._HAVE_PALLAS, reason="pallas unavailable")
 class TestFusedLae:
-    """The flagship kernel: measured 1.73 s → 67 ms (25.8×) at n=1e6 on v5e
-    (the LAE loop dominates the whole spectral stage under XLA)."""
-
     def test_matches_xla_fista(self, rng):
-        from flgp_tpu.ops.lae import lae_weights_xla
-
         n, d, s, r = 700, 3, 64, 3
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        idx = knn(X, U, r).indices
-        got = pk.fused_lae(X, U, idx, iters=150, block=256, interpret=True)
-        ref = lae_weights_xla(X, U, idx, iters=150)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-4)
-        # simplex feasibility
-        np.testing.assert_allclose(np.asarray(got).sum(1), 1.0, atol=1e-5)
-        assert np.asarray(got).min() >= 0.0
+        X, U, idx = _problem(rng, n, d, s, r, jnp.float32)
+        got = np.asarray(_kernel_weights(X, U, idx, 150))
+        ref = np.asarray(lae_weights_xla(X, U, idx, iters=150))
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+        np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+        assert got.min() >= -1e-7
 
     def test_r4_and_padding(self, rng):
-        from flgp_tpu.ops.lae import lae_weights_xla
-
+        # 300 points over 256-point blocks: the second block is mostly tail
         n, d, s, r = 300, 4, 32, 4
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        idx = knn(X, U, r).indices
-        got = pk.fused_lae(X, U, idx, iters=100, block=256, interpret=True)
+        X, U, idx = _problem(rng, n, d, s, r, jnp.float32)
+        got = _kernel_weights(X, U, idx, 100)
         ref = lae_weights_xla(X, U, idx, iters=100)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-4)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
 
 
-@pytest.mark.skipif(not pk._HAVE_PALLAS, reason="pallas unavailable")
-class TestEllMatmat:
-    def test_matches_gather_einsum(self, rng):
-        n, s, r, K = 70, 24, 4, 8
-        vals = jnp.asarray(rng.uniform(0.1, 1.0, size=(n, r)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, s, size=(n, r)), jnp.int32)
-        W = jnp.asarray(rng.normal(size=(s, K)), jnp.float32)
-        got = pk.ell_matmat(vals, idx, W, block=32, interpret=True)
-        ref = jnp.einsum("nr,nrk->nk", vals, W[idx])
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-5)
+class TestTritonLaeKernel:
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+    @pytest.mark.parametrize("r", [1, 2, 3, 5])
+    def test_against_xla_and_qp_oracle(self, rng, r, dtype):
+        n, d, s = 203, 3, 40          # 203 points: not a multiple of the block
+        X, U, idx = _problem(rng, n, d, s, r, dtype)
+        got = _kernel_weights(X, U, idx, 150)
+        ref = lae_weights_xla(X, U, idx, iters=150)
+        assert got.dtype == dtype and got.shape == (n, r)
+        tol = 1e-4 if dtype == jnp.float32 else 1e-10
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=tol)
+        np.testing.assert_allclose(np.asarray(got).sum(1), 1.0, atol=1e-5)
+        assert float(got.min()) >= -1e-7
+        # 150 iterations land on the QP optimum (first 25 points: SLSQP is slow)
+        assert _qp_objective_gap(X[:25], U, idx[:25], got[:25]) <= 1e-5
+
+    @pytest.mark.parametrize("iters", [1, 7, 40])
+    def test_iteration_count(self, rng, iters):
+        """Every prefix of the iteration schedule matches, not just the
+        converged end point: the momentum recursion is the same."""
+        r, n = 3, 130
+        X, U, idx = _problem(rng, n, 3, 24, r, jnp.float64)
+        Gt, bt = assemble_lae_gram_t(X, U, idx)
+        got = pk.lae_fista_t(Gt, bt, iters, block=64, interpret=True)
+        ref = _fista_t_xla(Gt, bt, iters)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-12)
+
+    @pytest.mark.parametrize("n", [1, 64, 65])
+    def test_tail_masking(self, rng, n):
+        """n below, at and just past one 64-point block."""
+        X, U, idx = _problem(rng, n, 2, 12, 3, jnp.float64)
+        Gt, bt = assemble_lae_gram_t(X, U, idx)
+        got = pk.lae_fista_t(Gt, bt, 50, block=64, interpret=True)
+        assert got.shape == (3, n)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(_fista_t_xla(Gt, bt, 50)), atol=1e-12
+        )
+
+    def test_gram_assembly_layout(self, rng):
+        """Gt row i·r + j is U_i·U_j and bt row k is U_k·x, point axis minor."""
+        n, d, s, r = 17, 4, 9, 3
+        X, U, idx = _problem(rng, n, d, s, r, jnp.float64)
+        Gt, bt = assemble_lae_gram_t(X, U, idx)
+        Ui = np.asarray(U)[np.asarray(idx)]
+        G = np.einsum("nrd,nsd->nrs", Ui, Ui)
+        np.testing.assert_allclose(np.asarray(Gt), G.reshape(n, r * r).T, atol=1e-12)
+        np.testing.assert_allclose(
+            np.asarray(bt), np.einsum("nd,nrd->rn", np.asarray(X), Ui), atol=1e-12
+        )
 
 
-@pytest.mark.skipif(not pk._HAVE_PALLAS, reason="pallas unavailable")
+class TestKernelChoice:
+    """The kernel is picked per lowering: XLA on the CPU, Triton for CUDA."""
+
+    def _lowered(self, fn, args, platform):
+        return jax.jit(fn).trace(*args).lower(lowering_platforms=(platform,)).as_text()
+
+    def test_cpu_lowering_runs_xla_scan(self, rng):
+        X, U, idx = _problem(rng, 50, 3, 16, 3, jnp.float32)
+        txt = self._lowered(lae_weights, (X, U, idx), "cpu")
+        assert "triton" not in txt
+        got = np.asarray(lae_weights(X, U, idx))
+        np.testing.assert_array_equal(
+            got, np.asarray(_fista_t_xla(*assemble_lae_gram_t(X, U, idx), 150).T)
+        )
+        # the feature-major scan and the point-major reference round apart
+        np.testing.assert_allclose(got, np.asarray(lae_weights_xla(X, U, idx)), atol=1e-5)
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+    def test_cuda_lowering_runs_triton_kernel(self, rng, dtype):
+        X, U, idx = _problem(rng, 50, 3, 16, 3, dtype)
+        txt = self._lowered(lae_weights, (X, U, idx), "cuda")
+        assert "triton" in txt and "lae_fista" in txt
+
+    def test_colmajor_chunk_choice(self, rng):
+        X, U, idx = _problem(rng, 40, 3, 16, 3, jnp.float32)
+        Gt, bt = assemble_lae_gram_t(X, U, idx)
+        assert "triton" in self._lowered(lambda g, b: lae_weights_t(g, b, 20), (Gt, bt), "cuda")
+        assert "triton" not in self._lowered(lambda g, b: lae_weights_t(g, b, 20), (Gt, bt), "cpu")
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_card(gpu_device):
+    """The compiled kernel vs the XLA scan at the flagship width."""
+    n, s, r, d = 100_000, 1024, 3, 3
+    with jax.default_device(gpu_device):
+        X = jax.random.normal(jax.random.PRNGKey(0), (n, d), jnp.float32)
+        U = X[:: n // s][:s]
+        idx = knn(X, U, r).indices
+        got = jax.jit(lae_weights)(X, U, idx)
+        ref = jax.jit(lae_weights_xla)(X, U, idx)
+    assert float(jnp.max(jnp.abs(got - ref))) <= 1e-4
+
+
 class TestFusedNormalizeSpectrumTail:
-    """Round-5 kernels: the graph tail (colsum / normalize+Gram / extension)
-    as streaming one-hot contractions vs the exact EllMatrix composition."""
-
-    def _graph(self, rng, n=450, d=3, s=48, r=3):
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        res = knn(X, U, r)
-        w = jnp.asarray(rng.uniform(0.1, 1.0, size=(n, r)), jnp.float32)
-        return w, res.indices, s
-
-    def test_ell_colsum(self, rng):
-        w, idx, s = self._graph(rng)
-        got = pk.ell_colsum(w, idx, s, block=128, interpret=True)
-        ref = jnp.zeros((s,), w.dtype).at[idx.reshape(-1)].add(w.reshape(-1))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-5)
-
-    def test_ell_norm_gram_matches_composition(self, rng):
-        from flgp_tpu.types import EllMatrix
-
-        w, idx, s = self._graph(rng)
-        cs = jnp.asarray(rng.uniform(0.5, 2.0, size=(s,)), jnp.float32)
-        G, D = pk.ell_norm_gram(w, idx, cs, block=128, interpret=True)
-        Z = EllMatrix(w, idx, s).scale_cols(cs)
-        Zn = Z.scale_rows(1.0 / (Z.rowsum() + 1e-9))
-        np.testing.assert_allclose(np.asarray(G), np.asarray(Zn.gram()), atol=2e-5)
-        np.testing.assert_allclose(np.asarray(D), np.asarray(Zn.colsum()), atol=2e-5)
-
-    def test_ell_norm_matmat_matches_composition(self, rng):
-        from flgp_tpu.types import EllMatrix
-
-        w, idx, s = self._graph(rng)
-        cs = jnp.asarray(rng.uniform(0.5, 2.0, size=(s,)), jnp.float32)
-        W = jnp.asarray(rng.normal(size=(s, 8)), jnp.float32)
-        got = pk.ell_norm_matmat(w, idx, cs, W, block=128, interpret=True)
-        Z = EllMatrix(w, idx, s).scale_cols(cs)
-        Zn = Z.scale_rows(1.0 / (Z.rowsum() + 1e-9))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(Zn.matmat(W)), atol=2e-5)
-
     @pytest.mark.parametrize("gl", ["rw", "normalized", "cluster-normalized"])
     def test_spectrum_fused_fallback_equals_composition(self, rng, gl):
-        """The non-TPU branch of spectrum_fused must BE the composition —
-        bit-for-bit (this is the path the f64 golden gates run through)."""
+        """spectrum_fused must BE the composition normalize_graph_laplacian +
+        spectrum_from_Z — bit-for-bit (the f64 golden gates run through it)."""
         from flgp_tpu.config import LaplacianType
         from flgp_tpu.ops.laplacian import normalize_graph_laplacian
         from flgp_tpu.ops.spectrum import spectrum_from_Z, spectrum_fused
@@ -139,114 +191,3 @@ class TestFusedNormalizeSpectrumTail:
         ref = spectrum_from_Z(Z, K, True)
         np.testing.assert_array_equal(np.asarray(got.values), np.asarray(ref.values))
         np.testing.assert_array_equal(np.asarray(got.vectors), np.asarray(ref.vectors))
-
-    def test_fused_tpu_branch_matches_composition_interpret(self, rng):
-        """The TPU branch's reassociated algebra (AᵀA = dinv·Ĝ·dinv, folded
-        extension) vs the composition, kernels in interpret mode."""
-        from flgp_tpu.config import EPS, LaplacianType
-        from flgp_tpu.ops.laplacian import normalize_graph_laplacian
-        from flgp_tpu.ops.spectrum import spectrum_from_Z
-        from flgp_tpu.types import EllMatrix
-
-        n, d, s, r, K = 400, 3, 40, 3, 8
-        X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        U = jnp.asarray(rng.normal(size=(s, d)), jnp.float32)
-        res = knn(X, U, r)
-        w = jnp.asarray(rng.uniform(0.1, 1.0, size=(n, r)), jnp.float32)
-
-        C = pk.ell_colsum(w, res.indices, s, block=128, interpret=True)
-        cscale = 1.0 / (C + EPS)
-        Ghat, D = pk.ell_norm_gram(w, res.indices, cscale, block=128, interpret=True)
-        dinv = 1.0 / jnp.sqrt(jnp.abs(D) + EPS)
-        G = Ghat * dinv[:, None] * dinv[None, :]
-        wv, V = jnp.linalg.eigh(G)
-        wv = wv[::-1][:K]
-        V = V[:, ::-1][:, :K]
-        sigma = jnp.sqrt(jnp.maximum(wv, 0.0))
-        W_eff = dinv[:, None] * V * (jnp.sqrt(jnp.float32(n)) / (sigma + EPS))[None, :]
-        vecs = pk.ell_norm_matmat(w, res.indices, cscale, W_eff, block=128, interpret=True)
-
-        Z = normalize_graph_laplacian(
-            EllMatrix(w, res.indices, s), LaplacianType.NORMALIZED, None
-        )
-        ref = spectrum_from_Z(Z, K, True)
-        np.testing.assert_allclose(np.asarray(sigma), np.asarray(ref.values), atol=1e-5)
-        Vr, Vg = np.asarray(ref.vectors), np.asarray(vecs)
-        signs = np.sign(np.sum(Vr * Vg, axis=0))
-        np.testing.assert_allclose(Vg * signs, Vr, atol=5e-3)
-
-
-@pytest.mark.skipif(not pk._HAVE_PALLAS, reason="pallas unavailable")
-class TestFeatureMajorTailKernels:
-    """Chunked (nch, r, c) variants of the fused tail kernels — the n=1e7
-    colmajor pipeline's normalize/Gram/extension (round 5)."""
-
-    def _graph_t(self, rng, nch=3, r=3, c=128, s=40):
-        w = jnp.asarray(rng.uniform(0.1, 1.0, size=(nch, r, c)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, s, size=(nch, r, c)), jnp.int32)
-        # zero-weight pad tail (the colmajor builder's contract)
-        w = w.at[-1, :, c // 2 :].set(0.0)
-        return w, idx, s
-
-    def test_colsum_t(self, rng):
-        w, idx, s = self._graph_t(rng)
-        got = pk.ell_colsum_t(w, idx, s, block=64, interpret=True)
-        ref = jnp.zeros((s,), w.dtype).at[idx.reshape(-1)].add(w.reshape(-1))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-5)
-
-    def test_norm_gram_t_matches_composition(self, rng):
-        from flgp_tpu.ops.colmajor import normalize_colmajor, spectrum_colmajor
-
-        w, idx, s = self._graph_t(rng)
-        cs = jnp.asarray(rng.uniform(0.5, 2.0, size=(s,)), jnp.float32)
-        G, D = pk.ell_norm_gram_t(w, idx, cs, block=64, interpret=True)
-        # oracle: normalize by hand on the chunked layout
-        w1 = w * cs[idx]
-        rs = jnp.sum(w1, axis=1, keepdims=True)
-        wn = w1 / (rs + 1e-9)
-        ref_D = jnp.zeros((s,), w.dtype).at[idx.reshape(-1)].add(wn.reshape(-1))
-        vv = (wn[:, :, None, :] * wn[:, None, :, :]).reshape(-1)
-        fi = (idx[:, :, None, :] * s + idx[:, None, :, :]).reshape(-1)
-        ref_G = jnp.zeros((s * s,), w.dtype).at[fi].add(vv).reshape(s, s)
-        np.testing.assert_allclose(np.asarray(D), np.asarray(ref_D), atol=3e-5)
-        np.testing.assert_allclose(np.asarray(G), np.asarray(ref_G), atol=3e-5)
-
-    def test_norm_matmat_t_matches_composition(self, rng):
-        w, idx, s = self._graph_t(rng)
-        cs = jnp.asarray(rng.uniform(0.5, 2.0, size=(s,)), jnp.float32)
-        W = jnp.asarray(rng.normal(size=(s, 8)), jnp.float32)
-        got = pk.ell_norm_matmat_t(w, idx, cs, W, block=64, interpret=True)
-        w1 = w * cs[idx]
-        rs = jnp.sum(w1, axis=1, keepdims=True)
-        wn = w1 / (rs + 1e-9)
-        ref = jnp.einsum("nrc,nrck->nck", wn, W[idx]).reshape(-1, 8)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=3e-5)
-
-    def test_fused_colmajor_tail_interpret_matches_spectrum(self, rng):
-        """End-to-end reassociated tail (interpret kernels) vs the exact
-        chunked composition (normalize_colmajor + spectrum_colmajor)."""
-        from flgp_tpu.config import EPS, LaplacianType
-        from flgp_tpu.ops.colmajor import normalize_colmajor, spectrum_colmajor
-
-        n = 3 * 128
-        w, idx, s = self._graph_t(rng)
-        w = w.at[-1, :, 64:].set(0.2)  # no pads: n == nch*c here
-        K = 8
-        C = pk.ell_colsum_t(w, idx, s, block=64, interpret=True)
-        cscale = 1.0 / (C + EPS)
-        Ghat, D = pk.ell_norm_gram_t(w, idx, cscale, block=64, interpret=True, eps=EPS)
-        dinv = 1.0 / jnp.sqrt(jnp.abs(D) + EPS)
-        G = Ghat * dinv[:, None] * dinv[None, :]
-        wv, V = jnp.linalg.eigh(G)
-        wv = wv[::-1][:K]
-        V = V[:, ::-1][:, :K]
-        sigma = jnp.sqrt(jnp.maximum(wv, 0.0))
-        W_eff = dinv[:, None] * V * (jnp.sqrt(jnp.float32(n)) / (sigma + EPS))[None, :]
-        vecs = pk.ell_norm_matmat_t(w, idx, cscale, W_eff, block=64, interpret=True, eps=EPS)[:n]
-
-        wn = normalize_colmajor(idx, w, s, LaplacianType.NORMALIZED, None)
-        ref = spectrum_colmajor(idx, wn, s, K, True, n)
-        np.testing.assert_allclose(np.asarray(sigma), np.asarray(ref.values), atol=1e-5)
-        Vr, Vg = np.asarray(ref.vectors), np.asarray(vecs)
-        signs = np.sign(np.sum(Vr * Vg, axis=0))
-        np.testing.assert_allclose(Vg * signs, Vr, atol=5e-3)
